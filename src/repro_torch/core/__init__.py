@@ -1,0 +1,77 @@
+"""repro_torch.core — serverless (a)sync federated learning, on the device.
+
+Public API mirrors the paper's usage snippet:
+
+    from repro_torch.api import connect
+    from repro_torch.core import AsyncFederatedNode, FederatedCallback
+    from repro_torch.core.strategies import FedAvg
+
+    node = AsyncFederatedNode(strategy=FedAvg(), store=connect("/mnt/shared/exp1"))
+    callback = FederatedCallback(node, num_examples_per_epoch=...)
+    trainer.fit(..., callbacks=[callback])
+"""
+from .callback import Callback, FederatedCallback
+from .node import AsyncFederatedNode, FederationTimeout, SyncFederatedNode
+from .partition import partition_dataset, partition_sequence_dataset, skewed_assignment
+from .serialize import (
+    FlatUpdate,
+    NodeUpdate,
+    deserialize_obs_blob,
+    deserialize_update,
+    peek_meta,
+    serialize_obs_blob,
+    serialize_update,
+)
+from .simulation import ClientResult, run_threaded, simulate_timeline, straggler_speedup
+from .store import (
+    TRANSPORTS,
+    CachingFolder,
+    DiskFolder,
+    InMemoryFolder,
+    RetryFolder,
+    S3Folder,
+    SharedFolder,
+    WeightStore,
+    make_folder,
+)
+from .strategies import (
+    STRATEGIES,
+    FedAdagrad,
+    FedAdam,
+    FedAsync,
+    FedAvg,
+    FedAvgM,
+    FedBuff,
+    FedYogi,
+    PartialFedAvg,
+    Strategy,
+    get_strategy,
+)
+from .telemetry import SpanRecorder, Telemetry, chrome_trace, collect_obs, telemetry_rollups
+from .transport import (
+    PipelineStats,
+    Prefetcher,
+    TransportPipeline,
+    family_transport_spec,
+    normalize_transport,
+    parse_folder_uri,
+    parse_pipeline_spec,
+)
+from .tree import FAMILY_PATTERNS, FamilyView, LeafSpec, register_family, resolve_family_patterns
+
+__all__ = [
+    "AsyncFederatedNode", "SyncFederatedNode", "FederationTimeout",
+    "Callback", "FederatedCallback",
+    "NodeUpdate", "FlatUpdate", "serialize_update", "deserialize_update", "peek_meta",
+    "serialize_obs_blob", "deserialize_obs_blob",
+    "LeafSpec", "FamilyView", "FAMILY_PATTERNS", "register_family", "resolve_family_patterns",
+    "SharedFolder", "InMemoryFolder", "DiskFolder", "S3Folder", "CachingFolder",
+    "RetryFolder", "WeightStore", "TRANSPORTS", "make_folder",
+    "TransportPipeline", "PipelineStats", "Prefetcher", "family_transport_spec",
+    "normalize_transport", "parse_pipeline_spec", "parse_folder_uri",
+    "Strategy", "FedAvg", "FedAvgM", "FedAdam", "FedYogi", "FedAdagrad", "FedAsync",
+    "FedBuff", "PartialFedAvg", "STRATEGIES", "get_strategy",
+    "skewed_assignment", "partition_dataset", "partition_sequence_dataset",
+    "run_threaded", "ClientResult", "simulate_timeline", "straggler_speedup",
+    "Telemetry", "SpanRecorder", "collect_obs", "telemetry_rollups", "chrome_trace",
+]

@@ -1,0 +1,466 @@
+"""Wire format for the weight store — byte-compatible with ``repro``'s.
+
+A deposited update is a tree of arrays plus scalar metadata (num_examples,
+local epoch counter, node id, wall time), serialized to one npz blob: leaves
+under their key-path strings, metadata under a reserved ``__meta__`` JSON
+entry. Both packages write and read the same blobs: a blob written by either
+decodes in the other to bit-identical arrays and an equal ``LeafSpec.key``.
+
+Everything here is host-side numpy; tensor leaves are copied to the host on
+the way out. This slice carries the full and quantized update families, the
+flat decode, the npz/zstd envelopes and the strategy-state and obs blobs. The
+delta, top-k, group-summary, super-summary and fleet families come with the
+federation plane (ROADMAP Queue 1, slice 2) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import hashlib
+import io
+import json
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+
+from .tree import LeafSpec, PyTree, as_numpy, path_str, tree_flatten_with_path, tree_map
+
+_META_KEY = "__meta__"
+_SEP = "|"  # npz keys cannot contain '/' reliably across tools; use '|'
+
+# zstd frame magic — lets deserializers sniff a zstd-wrapped npz envelope
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+
+COMPRESSIONS = ("none", "npz", "zstd")
+
+_ZSTD_MODULE: object = None  # cached binding; False = probed and absent
+
+
+def _zstd_module():
+    """The first importable zstd binding, or None. Imported lazily: the
+    machine with the card may have none."""
+    global _ZSTD_MODULE
+    if _ZSTD_MODULE is None:
+        import importlib
+
+        for name in ("zstandard", "zstd", "compression.zstd"):
+            try:
+                _ZSTD_MODULE = importlib.import_module(name)
+                break
+            except ImportError:
+                continue
+        else:
+            _ZSTD_MODULE = False
+    return _ZSTD_MODULE or None
+
+
+def _zstd_compress(blob: bytes) -> bytes:
+    mod = _zstd_module()
+    if mod is None:
+        raise ImportError("compress='zstd' requires a zstd module (zstandard)")
+    if hasattr(mod, "ZstdCompressor"):  # zstandard
+        return mod.ZstdCompressor().compress(blob)
+    return mod.compress(blob)
+
+
+def maybe_decompress(blob: bytes) -> bytes:
+    """Undo the optional zstd wire wrapping; readers stay format-agnostic."""
+    if blob[:4] != _ZSTD_MAGIC:
+        return blob
+    mod = _zstd_module()
+    if mod is None:
+        raise ImportError("blob is zstd-compressed but no zstd module is available")
+    if hasattr(mod, "ZstdDecompressor"):  # zstandard
+        return mod.ZstdDecompressor().decompress(blob)
+    return mod.decompress(blob)
+
+
+@dataclass
+class NodeUpdate:
+    """One client's deposit in the weight store."""
+
+    params: PyTree
+    num_examples: int
+    node_id: str
+    counter: int = 0  # client-local epoch counter (no global round exists)
+    timestamp: float = 0.0  # virtual or wall time, for staleness strategies
+    metrics: dict = field(default_factory=dict)
+    # Fleet-lease epoch of the writer (0 on the original claim); FedAsync
+    # discounts adopted peers by the epoch gap.
+    lease_epoch: int = 0
+
+
+class FlatUpdate(NodeUpdate):
+    """A ``NodeUpdate`` whose params live as one contiguous host f32 vector
+    plus a shared ``LeafSpec``. ``params`` materializes the tree lazily (numpy
+    views). Treat both as read-only: they may be shared via the store's
+    decode cache."""
+
+    def __init__(self, flat: np.ndarray, spec: LeafSpec, *, num_examples: int,
+                 node_id: str, counter: int = 0, timestamp: float = 0.0,
+                 metrics: dict | None = None, lease_epoch: int = 0):
+        self.flat = np.asarray(flat, np.float32).reshape(-1)
+        self.spec = spec
+        self._tree: PyTree | None = None
+        NodeUpdate.__init__(
+            self, params=None, num_examples=num_examples, node_id=node_id,
+            counter=counter, timestamp=timestamp, metrics=metrics or {},
+            lease_epoch=lease_epoch,
+        )
+
+    @property
+    def params(self) -> PyTree:
+        if self._tree is None:
+            self._tree = self.spec.unflatten(self.flat)
+        return self._tree
+
+    @params.setter
+    def params(self, value) -> None:  # dataclass __init__ assigns params=None
+        self._tree = value
+
+    def __repr__(self) -> str:
+        return (f"FlatUpdate(node_id={self.node_id!r}, counter={self.counter}, "
+                f"num_examples={self.num_examples}, spec={self.spec!r})")
+
+
+def _wire_leaf(leaf) -> tuple[np.ndarray, str | None]:
+    """A leaf's on-wire array. npz cannot round-trip ml_dtypes, so bf16/fp8
+    ship as f32; returns (array, dtype name to restore on load or None)."""
+    arr = as_numpy(leaf)
+    if arr.dtype.kind == "V" or arr.dtype.name in ("bfloat16", "float8_e4m3fn", "float8_e5m2"):
+        return arr.astype(np.float32), arr.dtype.name
+    return arr, None
+
+
+def _restored_dtype(name: str) -> np.dtype:
+    import ml_dtypes
+
+    return np.dtype(getattr(ml_dtypes, name))
+
+
+def _rebuild_tree(order, dtypes, get_leaf) -> dict:
+    """Rebuild the nested-dict tree from 'a|b|c' key paths; restores the
+    original dtype of leaves that shipped as f32."""
+    tree: dict = {}
+    for key in order:
+        leaf = get_leaf(key)
+        if key in dtypes:
+            leaf = leaf.astype(_restored_dtype(dtypes[key]))
+        parts = key.split(_SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+def _pack_npz(arrays: dict[str, np.ndarray], order: list[str], dtypes: dict[str, str],
+              meta: dict[str, Any] | None, *, compress: str = "none") -> bytes:
+    """The one wire envelope: leaf arrays + __order__/__dtypes__ under a JSON
+    __meta__ entry, zipped into an npz; 'npz' deflates, 'zstd' wraps the
+    whole blob in a zstd frame."""
+    if compress not in COMPRESSIONS:
+        raise ValueError(f"unknown compress {compress!r}; options: {COMPRESSIONS}")
+    meta_blob = dict(meta or {})
+    meta_blob["__order__"] = order
+    meta_blob["__dtypes__"] = dtypes
+    arrays[_META_KEY] = np.frombuffer(json.dumps(meta_blob).encode(), dtype=np.uint8)
+    buf = io.BytesIO()
+    (np.savez_compressed if compress == "npz" else np.savez)(buf, **arrays)
+    blob = buf.getvalue()
+    if compress == "zstd":
+        blob = _zstd_compress(blob)
+    return blob
+
+
+def serialize_params(params: PyTree, meta: dict[str, Any] | None = None, *,
+                     compress: str = "none") -> bytes:
+    arrays: dict[str, np.ndarray] = {}
+    order: list[str] = []
+    dtypes: dict[str, str] = {}
+    for path, leaf in tree_flatten_with_path(params)[0]:
+        key = path_str(path).replace("/", _SEP)
+        arr, original_dtype = _wire_leaf(leaf)
+        if original_dtype:
+            dtypes[key] = original_dtype
+        arrays[key] = arr
+        order.append(key)
+    return _pack_npz(arrays, order, dtypes, meta, compress=compress)
+
+
+def _load_meta(data) -> dict:
+    return json.loads(bytes(data[_META_KEY].tobytes()).decode())
+
+
+def deserialize_params(blob: bytes) -> tuple[PyTree, dict[str, Any]]:
+    """Returns (nested-dict numpy params, meta)."""
+    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
+        meta = _load_meta(data)
+        order = meta.pop("__order__")
+        dtypes = meta.pop("__dtypes__", {})
+        tree = _rebuild_tree(order, dtypes, lambda key: data[key])
+    return tree, meta
+
+
+# --- flat decode: npz blob → one preallocated f32 vector ---------------------
+
+
+class FlatDecodeUnsupported(ValueError):
+    """Blob holds leaves a flat f32 vector cannot represent losslessly
+    (int/f64 wire arrays) — callers fall back to the per-leaf tree decode."""
+
+
+def _spec_table_key(order, dtypes, quantized, wire_dtypes=()) -> tuple:
+    """Structure identity for spec interning (wire dtypes included: f16 and
+    f32 models of one structure must not share a spec)."""
+    return ("q" if quantized else "f", tuple(order),
+            tuple(sorted(dtypes.items())), tuple(wire_dtypes))
+
+
+def _build_wire_spec(order, dtypes, shapes_by_key, quantized) -> LeafSpec:
+    """LeafSpec for a wire structure, in the canonical (sorted-key) leaf order
+    a tree reader's rebuilt dict flattens to."""
+    skeleton = _rebuild_tree(list(shapes_by_key), {}, lambda key: 0)
+    canon_paths, treedef = tree_flatten_with_path(skeleton)
+    paths, shapes, dts = [], [], []
+    for path, _ in canon_paths:
+        p = path_str(path)
+        key = p.replace("/", _SEP)
+        paths.append(p)
+        shapes.append(shapes_by_key[key][0])
+        if quantized:
+            dts.append(np.dtype(np.float32))  # dequantized leaves are f32
+        elif key in dtypes:
+            dts.append(_restored_dtype(dtypes[key]))
+        else:
+            dts.append(shapes_by_key[key][1])
+    return LeafSpec(paths, shapes, dts, treedef)
+
+
+def _wire_keys(spec: LeafSpec) -> tuple[str, ...]:
+    """Spec paths in wire ('|'-separated) form, cached on the spec object."""
+    keys = getattr(spec, "_wire_keys", None)
+    if keys is None:
+        keys = tuple(p.replace("/", _SEP) for p in spec.paths)
+        spec._wire_keys = keys
+    return keys
+
+
+def decode_params_flat(blob: bytes, specs: dict) -> tuple[LeafSpec, np.ndarray, dict]:
+    """Decode a full or quantized npz blob straight into one preallocated
+    host f32 vector. ``specs`` is a caller-owned interning table (structure
+    key → LeafSpec) so all updates of one model share a spec instance.
+    Raises ``FlatDecodeUnsupported`` for wire arrays that don't embed in f32."""
+    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
+        meta = _load_meta(data)
+        order = meta.pop("__order__")
+        dtypes = meta.pop("__dtypes__", {})
+        if "delta_of" in meta:
+            raise ValueError("delta blob: use deserialize_update_delta_flat")
+        quantized = bool(meta.get("quantized"))
+        if quantized:
+            # order lists the packed {"q":..., "s":...} tree; the spec
+            # describes the original structure (q-keys with prefix stripped)
+            leaf_keys = [k[2:] for k in order if k.startswith("q" + _SEP)]
+            arrays = {k: data["q" + _SEP + k] for k in leaf_keys}
+        else:
+            leaf_keys = list(order)
+            arrays = {k: data[k] for k in leaf_keys}
+            for k, a in arrays.items():
+                if a.dtype.kind != "f" or a.dtype.itemsize > 4:
+                    raise FlatDecodeUnsupported(
+                        f"leaf {k!r} has wire dtype {a.dtype} (not f32-exact)")
+        wire_dtypes = () if quantized else tuple(arrays[k].dtype.str for k in leaf_keys)
+        skey = _spec_table_key(order, dtypes, quantized, wire_dtypes)
+        spec = specs.get(skey)
+        drifted = False
+        if spec is not None:
+            # verify shapes still match the interned layout; drift → rebuild
+            wire = _wire_keys(spec)
+            if len(wire) != len(leaf_keys) or any(
+                tuple(arrays[k].shape) != spec.shapes[spec.index[k.replace(_SEP, "/")]]
+                for k in leaf_keys
+            ):
+                spec, drifted = None, True
+        if spec is None:
+            shapes_by_key = {k: (tuple(a.shape), a.dtype) for k, a in arrays.items()}
+            spec = _build_wire_spec(order, dtypes, shapes_by_key, quantized)
+            if drifted:
+                specs[skey] = spec  # replace the stale layout
+            else:
+                # setdefault: a racing decode (prefetch thread vs pull) must
+                # not intern two spec instances for one structure
+                spec = specs.setdefault(skey, spec)
+        flat = spec.empty_flat()
+        index, offsets, sizes = spec.index, spec.offsets, spec.sizes
+        for k in leaf_keys:
+            i = index[k.replace(_SEP, "/")]
+            o, n = offsets[i], sizes[i]
+            if quantized:
+                np.multiply(arrays[k].reshape(-1), np.float32(data["s" + _SEP + k]),
+                            out=flat[o:o + n], dtype=np.float32, casting="unsafe")
+            else:
+                flat[o:o + n] = arrays[k].reshape(-1)
+    return spec, flat, meta
+
+
+def flat_update_from_meta(spec: LeafSpec, flat: np.ndarray,
+                          meta: dict[str, Any]) -> FlatUpdate:
+    return FlatUpdate(
+        flat, spec,
+        num_examples=int(meta["num_examples"]),
+        node_id=str(meta["node_id"]),
+        counter=int(meta["counter"]),
+        timestamp=float(meta["timestamp"]),
+        metrics=meta.get("metrics", {}),
+        lease_epoch=int(meta.get("lease_epoch", 0)),
+    )
+
+
+def deserialize_update_flat(blob: bytes, specs: dict) -> FlatUpdate:
+    """Full/quantized blob → FlatUpdate (see ``decode_params_flat``)."""
+    spec, flat, meta = decode_params_flat(blob, specs)
+    return flat_update_from_meta(spec, flat, meta)
+
+
+def _update_meta(update: NodeUpdate, **extra: Any) -> dict[str, Any]:
+    return {
+        "num_examples": int(update.num_examples),
+        "node_id": update.node_id,
+        "counter": int(update.counter),
+        "timestamp": float(update.timestamp),
+        "metrics": update.metrics,
+        "lease_epoch": int(getattr(update, "lease_epoch", 0)),
+        **extra,
+    }
+
+
+def _update_from_meta(params: PyTree, meta: dict[str, Any]) -> NodeUpdate:
+    return NodeUpdate(
+        params=params,
+        num_examples=int(meta["num_examples"]),
+        node_id=str(meta["node_id"]),
+        counter=int(meta["counter"]),
+        timestamp=float(meta["timestamp"]),
+        metrics=meta.get("metrics", {}),
+        lease_epoch=int(meta.get("lease_epoch", 0)),
+    )
+
+
+def serialize_update(update: NodeUpdate, *, compress: str = "none") -> bytes:
+    return serialize_params(update.params, meta=_update_meta(update), compress=compress)
+
+
+def deserialize_update(blob: bytes) -> NodeUpdate:
+    params, meta = deserialize_params(blob)
+    return _update_from_meta(params, meta)
+
+
+def content_hash(blob: bytes) -> str:
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def peek_meta(blob: bytes) -> dict[str, Any]:
+    """Read only the ``__meta__`` entry of a blob (cheap dispatch: full vs
+    quantized vs delta) without materializing the weight arrays."""
+    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
+        return _load_meta(data)
+
+
+# --- strategy-state recovery blobs (``state/<node>``) ------------------------
+
+
+def serialize_strategy_state(node_id: str, strategy: str, counter: int,
+                             state: dict, *, compress: str = "none") -> bytes:
+    return serialize_params(
+        {k: as_numpy(v) for k, v in state.items()},
+        compress=compress,
+        meta={"state_of": node_id, "strategy": strategy, "counter": int(counter)},
+    )
+
+
+def deserialize_strategy_state(blob: bytes) -> tuple[dict, dict]:
+    """-> (state arrays by name, meta with state_of/strategy/counter)."""
+    state, meta = deserialize_params(blob)
+    if "state_of" not in meta:
+        raise ValueError("not a strategy-state blob")
+    return state, meta
+
+
+# --- observability blobs (``obs/<node>/<seq>``) -------------------------------
+
+
+def serialize_obs_blob(node_id: str, seq: int, payload: dict, *,
+                       compress: str = "none") -> bytes:
+    """One telemetry snapshot deposit for ``obs/<node_id>/<seq>``."""
+    return serialize_params(
+        {}, compress=compress,
+        meta={"obs_of": str(node_id), "seq": int(seq), "payload": dict(payload)},
+    )
+
+
+def deserialize_obs_blob(blob: bytes) -> tuple[str, int, dict]:
+    """-> (node_id, seq, payload). Raises ValueError on non-obs blobs."""
+    _params, meta = deserialize_params(blob)
+    if "obs_of" not in meta:
+        raise ValueError("not a telemetry blob")
+    return (str(meta["obs_of"]), int(meta.get("seq", 0)),
+            dict(meta.get("payload") or {}))
+
+
+# --- int8 compressed payloads -------------------------------------------------
+
+
+def quantize_leaf(x) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-tensor int8 quantization: returns (q, scale)."""
+    x = np.asarray(as_numpy(x), np.float32)
+    scale = np.maximum(np.abs(x).max(), 1e-12) / 127.0
+    q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    return q, np.float32(scale)
+
+
+def dequantize_leaf(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    return q.astype(np.float32) * np.float32(scale)
+
+
+def serialize_update_quantized(update: NodeUpdate, *, compress: str = "none") -> bytes:
+    qtree = tree_map(lambda x: quantize_leaf(x)[0], update.params)
+    stree = tree_map(lambda x: quantize_leaf(x)[1], update.params)
+    return serialize_params(
+        {"q": qtree, "s": stree}, meta=_update_meta(update, quantized=True),
+        compress=compress
+    )
+
+
+def deserialize_update_quantized(blob: bytes) -> NodeUpdate:
+    packed, meta = deserialize_params(blob)
+    params = tree_map(dequantize_leaf, packed["q"], packed["s"])
+    return _update_from_meta(params, meta)
+
+
+# --- families that come with the federation plane (slice 2) -------------------
+
+
+def _deferred(name: str, what: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name}: {what} is not ported yet (ROADMAP Queue 1, slice 2: "
+            "the federation plane)")
+
+    fn.__name__ = name
+    return fn
+
+
+_DELTA = "the delta / top-k wire family (item 13)"
+_GOSSIP = "the gossip summary family (item 14)"
+_FLEET = "the fleet-control family (item 15)"
+serialize_update_delta = _deferred("serialize_update_delta", _DELTA)
+serialize_update_delta_from_flat = _deferred("serialize_update_delta_from_flat", _DELTA)
+deserialize_update_delta = _deferred("deserialize_update_delta", _DELTA)
+deserialize_update_delta_flat = _deferred("deserialize_update_delta_flat", _DELTA)
+apply_update_delta_flat = _deferred("apply_update_delta_flat", _DELTA)
+serialize_group_summary = _deferred("serialize_group_summary", _GOSSIP)
+deserialize_group_summary = _deferred("deserialize_group_summary", _GOSSIP)
+serialize_super_summary = _deferred("serialize_super_summary", _GOSSIP)
+deserialize_super_summary = _deferred("deserialize_super_summary", _GOSSIP)
+serialize_fleet_blob = _deferred("serialize_fleet_blob", _FLEET)
+deserialize_fleet_blob = _deferred("deserialize_fleet_blob", _FLEET)
