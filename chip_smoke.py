@@ -2,11 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each one
-against its plain PyTorch version at the main path's shapes, times it beside
-its bound, then drives the port's federation loop end to end: four threaded
-clients (two FedAvg, two FedAdam) train the GroupNorm ResNet-18 at full width
-and federate through a disk folder. Prints one JSON line per phase, then the
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, all at once), holds each one against its plain PyTorch version at
+the main paths' shapes and times it beside its bound, then drives the port's
+two main paths end to end:
+
+* the federation loop: four threaded clients (two FedAvg, two FedAdam) train
+  the GroupNorm ResNet-18 at full width and federate through a disk folder
+  (``fed_agg``, ``fed_opt``);
+* the serving tier: a publisher pushes granite-3-2b weights (full width,
+  bf16, made from a seed) to a store, ``api.serve`` deploys them, batches of
+  8 prompts x 512 tokens decode 64 greedy tokens each, and a second push
+  hot-swaps new weights in while traffic runs (``flash_attention`` prefill,
+  ``decode_attention`` per token).
+
+Prints one JSON line per phase, then the card's name and power limit, the
 kernel summary and, last, ``{"ok": true, "device": {...}}``. Any failure
 raises (exit code != 0). Without a CUDA card, or without the repository
 beside it, it exits non-zero before printing any result.
@@ -36,10 +46,30 @@ TIME_SHAPES = [(4, N_RESNET18), (16, N_RESNET18)]
 FED_CLIENTS, FED_EPOCHS, FED_STEPS, FED_BATCH = 4, 3, 8, 64
 OPT_HP = dict(lr=0.3, b1=0.9, b2=0.95, tau=1e-2)
 
+# The serving path: granite-3-2b at full width (bf16), batches of SERVE_B
+# prompts x SERVE_S tokens decoding SERVE_NEW greedy tokens each; the
+# consistency check runs the same widths in f32 at CONSIST_LAYERS layers.
+SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW = "granite-3-2b", 8, 512, 64
+CONSIST_LAYERS, CONSIST_B, CONSIST_S, CONSIST_NEW = 4, 4, 128, 16
+# Attention checks: the reference's sweeps (tests/test_kernels.py), the
+# serving path's shapes, ragged S / C and windows.
+FLASH_CHECK = [  # B, S, KV, G, hd, window
+    (2, 256, 2, 2, 64, 0), (1, 256, 1, 4, 64, 128), (2, 512, 4, 1, 128, 0),
+    (1, 128, 2, 2, 256, 64), (1, 256, 2, 3, 64, 0),
+    (SERVE_B, SERVE_S, 8, 4, 64, 0), (2, 200, 8, 4, 64, 0), (1, 333, 2, 6, 128, 100)]
+DECODE_CHECK = [  # B, KV, G, hd, C
+    (2, 2, 4, 64, 1024), (1, 8, 1, 128, 512), (3, 1, 6, 64, 2048), (1, 2, 2, 256, 256),
+    (SERVE_B, 8, 4, 64, SERVE_S + SERVE_NEW), (SERVE_B, 8, 4, 64, 32768), (2, 8, 4, 64, 1000)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference's own
+# bf16's atol is also scaled by max|want| where that is below 1: at C = 32,768
+# the outputs are ~0.01, under a plain 2e-2, which zeros would meet.
+
 # Device-memory rate by card (NVIDIA data sheets), bytes/s, and the f32 rate
 # outside the tensor cores (the fed kernels' arithmetic), flop/s.
 _BANDWIDTH = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12)]
 _F32_FLOPS = [("H100 PCIe", 51e12), ("H100", 67e12), ("H200", 67e12)]
+# Dense bf16 tensor-core rate (NVIDIA data sheets, without sparsity), flop/s.
+_BF16_FLOPS = [("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12), ("H200", 989e12)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -81,6 +111,374 @@ def bound(name: str, k: int, n: int, card: str) -> dict:
             "bytes": nbytes, "bandwidth_Bps": bw, "flops": flops}
 
 
+def attn_bound(kind: str, card: str, *, B: int, T: int, KV: int, G: int, hd: int,
+               itemsize: int, pairs: int) -> dict:
+    """Least time for one attention call: q, k, v and o each moved once
+    (plus the decode mask) over the memory rate, vs 4·hd flops for each
+    visible (query head, key) pair — ``pairs`` per (batch, head), counted from
+    this run's mask — over the peak rate for the inputs' type (bf16 tensor
+    cores; f32 outside them). ``T`` is S (flash) or C (decode)."""
+    H = KV * G
+    rows = T if kind == "flash_attention" else 1  # query positions per (b, head)
+    nbytes = (2 * B * rows * H * hd + 2 * B * T * KV * hd) * itemsize
+    if kind == "decode_attention":
+        nbytes += T  # the (C,) bool mask
+    flops = 4 * B * H * hd * pairs
+    bw, _ = card_rate(_BANDWIDTH, card)
+    peak, _ = card_rate(_BF16_FLOPS if itemsize == 2 else _F32_FLOPS, card)
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "bandwidth_Bps": bw, "peak_flops": peak}
+
+
+def visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) mask keeps per (batch, head)."""
+    return sum(min(s + 1, window) if window > 0 else s + 1 for s in range(S))
+
+
+def sdpa_inputs(q, k, v):
+    """The library call's operands, made once outside the timed region:
+    heads-first q (B, H, L, hd) and k/v (B, KV, T, hd), and whether SDPA
+    maps the G query heads onto their KV head itself (``enable_gqa``) or
+    needs k/v expanded to H heads."""
+    import torch.nn.functional as F
+
+    B, L = q.shape[0], q.shape[1]
+    hd = q.shape[-1]
+    qh = q.reshape(B, L, -1, hd).transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+    try:
+        F.scaled_dot_product_attention(qh[:, :, :1], kh[:, :, :1], vh[:, :, :1], enable_gqa=True)
+        return qh, kh, vh, {"enable_gqa": True}
+    except TypeError:
+        G = qh.shape[1] // kh.shape[1]
+        return qh, kh.repeat_interleave(G, 1), vh.repeat_interleave(G, 1), {}
+
+
+def check_attention(dev, gen) -> tuple[list, dict]:
+    """Each attention kernel against its plain version at the reference's
+    sweep shapes and the serving path's, f32 and bf16. Raises on a miss."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    checks, max_err = [], {"flash_attention": 0.0, "decode_attention": 0.0}
+
+    def hold(name, got, want, dtype, note):
+        tol = atol = ATTN_TOL[dtype]
+        if dtype == torch.bfloat16:
+            atol = tol * min(1.0, float(want.float().abs().max()))
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(),
+                                                                rtol=tol, atol=atol)
+        checks.append({"kernel": name, "shape": note, "dtype": str(dtype), "max_abs_err": err,
+                       "rtol": tol, "atol": atol, "ok": ok})
+        max_err[name] = max(max_err[name], err)
+        if not ok:
+            raise AssertionError(f"{name} {note} {dtype}: max abs err {err} over "
+                                 f"rtol {tol} / atol {atol}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, KV, G, hd, window in FLASH_CHECK:
+            q = torch.randn(B, S, KV, G, hd, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen).to(dtype) for _ in range(2))
+            hold("flash_attention", fk.flash_attention(q, k, v, window=window),
+                 flash_attention_ref(q, k, v, window=window), dtype,
+                 f"B={B} S={S} KV={KV} G={G} hd={hd} window={window}")
+        for B, KV, G, hd, C in DECODE_CHECK:
+            q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(dtype) for _ in range(2))
+            valid = torch.rand(C, device=dev, generator=gen) < 0.7
+            hold("decode_attention", dk.decode_attention(q, k, v, valid),
+                 decode_attention_ref(q, k, v, valid), dtype,
+                 f"B={B} KV={KV} G={G} hd={hd} C={C}")
+    # a ring with no valid slot: both give the plain mean of v (all scores -1e30)
+    q = torch.randn(1, 2, 4, 64, device=dev, generator=gen)
+    k, v = (torch.randn(1, 100, 2, 64, device=dev, generator=gen) for _ in range(2))
+    none = torch.zeros(100, dtype=torch.bool, device=dev)
+    hold("decode_attention", dk.decode_attention(q, k, v, none),
+         decode_attention_ref(q, k, v, none), torch.float32, "B=1 KV=2 G=4 hd=64 C=100 no valid slot")
+    torch.cuda.synchronize()
+    return checks, max_err
+
+
+def time_attention(dev, gen, card) -> list:
+    """Median CUDA-event times of each attention kernel, its plain version and
+    SDPA, at the serving path's shapes (bf16), beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    bf16, timings = torch.bfloat16, []
+    B, S, KV, G, hd = SERVE_B, SERVE_S, 8, 4, 64
+    q = torch.randn(B, S, KV, G, hd, device=dev, generator=gen).to(bf16)
+    k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
+    qh, kh, vh, gqa = sdpa_inputs(q, k, v)
+    timings.append({
+        "name": "flash_attention", "shape": f"B={B} S={S} KV={KV} G={G} hd={hd} causal bf16",
+        "kernel_ms": time_ms(lambda: fk.flash_attention(q, k, v)),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, **gqa)),
+        "library": "F.scaled_dot_product_attention(is_causal=True)",
+        **attn_bound("flash_attention", card, B=B, T=S, KV=KV, G=G, hd=hd, itemsize=2,
+                     pairs=visible_pairs(S, 0))})
+    del q, k, v, qh, kh, vh
+    for C in (SERVE_S + SERVE_NEW, 32768):
+        q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(bf16)
+        k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
+        valid = torch.ones(C, dtype=torch.bool, device=dev)
+        qh, kh, vh, gqa = sdpa_inputs(q[:, None], k, v)
+        timings.append({
+            "name": "decode_attention", "shape": f"B={B} C={C} KV={KV} G={G} hd={hd} bf16, all slots valid",
+            "kernel_ms": time_ms(lambda: dk.decode_attention(q, k, v, valid)),
+            "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, valid)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=valid[None, None, None], **gqa)),
+            "library": "F.scaled_dot_product_attention(attn_mask=valid)",
+            **attn_bound("decode_attention", card, B=B, T=C, KV=KV, G=G, hd=hd, itemsize=2,
+                         pairs=int(valid.sum()))})
+        del q, k, v, qh, kh, vh
+    return timings
+
+
+def serving_consistency(dev) -> dict:
+    """granite-3-2b at full width in f32, cut to CONSIST_LAYERS layers: the
+    flash-prefill path (``serve_batch``) and the decode-kernel-only path
+    (``serve_batch_loop``) give the same greedy tokens, and the prefill's
+    logits on the card agree with the plain versions' on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import serve_batch, serve_batch_loop
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_ARCH).replace(dtype="float32", n_layers=CONSIST_LAYERS)
+    model = build_model(cfg)
+    params = model.init(1, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (CONSIST_B, CONSIST_S),
+                            generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    fast = serve_batch(cfg, params, prompts, new_tokens=CONSIST_NEW).cpu()
+    slow = serve_batch_loop(cfg, params, prompts, new_tokens=CONSIST_NEW).cpu()
+    if not torch.equal(fast, slow):
+        raise AssertionError(f"serve_batch != serve_batch_loop on the card:\n{fast}\n{slow}")
+    # the prefill's last-position logits, kernels on the card vs plain on the CPU
+    short = prompts[:2, :64]
+    with torch.inference_mode():
+        got, _ = model.prefill(params, short.to(dev), model.init_cache(2, 64, device=dev))
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        want, _ = model.prefill(cpu_params, short, model.init_cache(2, 64, device="cpu"))
+    err = float((got.cpu() - want).abs().max())
+    if not (torch.isfinite(got).all() and torch.allclose(got.cpu(), want, rtol=1e-3, atol=1e-3)):
+        raise AssertionError(f"prefill logits, card vs CPU: max abs err {err}")
+    return {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "batch": CONSIST_B, "prompt": CONSIST_S, "new_tokens": CONSIST_NEW,
+            "tokens_equal": True, "prefill_logits_vs_cpu_max_abs_err": err,
+            "logits_tol": 1e-3}
+
+
+def host_memory(n_params: int) -> dict:
+    """MemAvailable (/proc/meminfo) against what a hot swap at this size
+    certainly holds at once: the node's two host f32 buffers, the store's
+    blob and its decoded f32 flat. Raises, with the reading, if the host
+    cannot hold that: the model is served at its published depth or not at
+    all."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable:"))
+    need = 4 * 4 * n_params
+    if avail < need:
+        raise MemoryError(f"MemAvailable {avail} bytes < {need} bytes: two host f32 buffers, "
+                          f"the store's blob and its decoded flat of {n_params} parameters")
+    return {"host_mem_available_bytes": avail, "host_mem_floor_bytes": need}
+
+
+def serving(dev) -> tuple[dict, dict]:
+    """The serving tier end to end, at full width in bf16: publish → deploy →
+    batched prefill + greedy decode → a second push hot-swapped in under
+    traffic → a batch on the new weights. Returns (phase record, launches)."""
+    import resource
+    import threading
+
+    import numpy as np
+
+    from repro_torch.api import connect, serve
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialize import NodeUpdate
+    from repro_torch.core.tree import LeafSpec, tree_map
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    n_params = LeafSpec.of(model.abstract()).num_params
+    host = host_memory(n_params)
+    uri = "memory://chip-smoke-serving"
+
+    def publish(params: dict, counter: int) -> dict:
+        t0 = time.perf_counter()
+        connect(uri).push(NodeUpdate(params, num_examples=1, node_id="publisher",
+                                     counter=counter, timestamp=time.time()))
+        return {"push_s": time.perf_counter() - t0}
+
+    # Random weights at this depth mostly copy the last token forward, so two
+    # seeds decode alike; the second weight set is the first negated (as the
+    # reference's hot-swap test makes its), which flips the greedy choice.
+    first_params = model.init(0, device=dev)
+    second_params = tree_map(torch.neg, first_params)
+    pushes = [publish(first_params, 0)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    node = serve(uri, cfg, poll_interval=0.05, wait=900.0, node_id="server-0")
+    try:
+        if not node.stats()["deployed"]:
+            raise AssertionError("the serving node deployed nothing within 900 s")
+        first_deploy_s = time.perf_counter() - t0
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                                                    dtype=np.int32)
+        node.generate(prompts[:, :16], new_tokens=2)  # warm-up: allocator, cuBLAS handles
+        fk.reset_launches()
+        dk.reset_launches()
+        first, meta = node.generate(prompts, new_tokens=SERVE_NEW)
+        batches = [(first, meta)]
+        if meta["counter"] != 0:
+            raise AssertionError(f"first batch served counter {meta['counter']}")
+        # a second push lands while traffic runs
+        errors: list[BaseException] = []
+
+        def second_push():
+            try:
+                pushes.append(publish(second_params, 1))
+            except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+                errors.append(e)
+
+        pusher = threading.Thread(target=second_push)
+        push_started = time.perf_counter()
+        pusher.start()
+        deadline = None
+        while node.stats()["counter"] != 1:
+            batches.append(node.generate(prompts, new_tokens=SERVE_NEW))
+            if errors:
+                raise errors[0]
+            if not pusher.is_alive():
+                deadline = deadline or time.perf_counter() + 300.0
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the second push was never deployed")
+        pusher.join()
+        last, last_meta = node.generate(prompts, new_tokens=SERVE_NEW)
+        batches.append((last, last_meta))
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fk.LAUNCHES["flash_attention"],
+                    "decode_attention": dk.LAUNCHES["decode_attention"]}
+        stats = node.stats()
+        swap_log = node.swap_log()
+        # where a batch's time goes: prefill alone, then prefill + 16 tokens
+        profiled = {"prefill": profile_generate(node, prompts, 1),
+                    "prefill_and_16_tokens": profile_generate(node, prompts, 17)}
+    finally:
+        node.stop()
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    # the deployed weights serve what the pushed ones serve directly, before
+    # and after the swap (same kernels, same card: equal tokens)
+    for out, params, name in ((first, first_params, "first"), (last, second_params, "second")):
+        want = serve_batch(cfg, params, prompts, new_tokens=SERVE_NEW).cpu().numpy()
+        if not np.array_equal(out, want):
+            raise AssertionError(f"the node's tokens on the {name} weights differ from "
+                                 "serve_batch's on the pushed weights")
+    del first_params, second_params
+    # no torn read: every batch that started on the first weights gave the
+    # first batch's tokens; the batch after the swap runs on the new weights
+    kept = [m["counter"] for _, m in batches[:-1]]
+    if any(c == 0 and not np.array_equal(out, first) for (out, m), c in zip(batches, kept)):
+        raise AssertionError("a batch on the first weights changed its tokens mid-swap")
+    if last_meta["counter"] != 1 or np.array_equal(last, first):
+        raise AssertionError(f"the batch after the swap ran counter {last_meta['counter']} "
+                             "or gave the first weights' tokens")
+    if last.shape != (SERVE_B, SERVE_NEW) or not ((last >= 0) & (last < cfg.vocab_size)).all():
+        raise AssertionError(f"bad tokens: shape {last.shape}")
+
+    # per-token decode latency: steady (no update in flight), while the second
+    # update is pushed, pulled and decoded on the host, and during its swap
+    swap = swap_log[-1]
+    steady, during_update, during = [], [], []
+    for _, m in batches:
+        for a, b in m["decode_spans"]:
+            if a < swap[1] and b > swap[0]:
+                during.append((b - a) * 1e3)
+            elif push_started < b and a < swap[0]:
+                during_update.append((b - a) * 1e3)
+            else:
+                steady.append((b - a) * 1e3)
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
+    n_tokens = SERVE_B * SERVE_NEW * len(batches)
+    decode_s = sum(b - a for _, m in batches for a, b in m["decode_spans"])
+    record = {
+        "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "params": n_params, "batch": SERVE_B, "prompt": SERVE_S,
+        "new_tokens": SERVE_NEW, "batches": len(batches),
+        "mid_swap_batches_on_counter_0": sum(1 for c in kept if c == 0) - 1,
+        "push_s": [p["push_s"] for p in pushes], "first_deploy_s": first_deploy_s,
+        "prefill_ms_first": batches[0][1]["prefill_s"] * 1e3,
+        "prefill_ms_p50": pct([m["prefill_s"] * 1e3 for _, m in batches], 50),
+        "decode_ms_p50_steady": pct(steady, 50), "decode_ms_p99_steady": pct(steady, 99),
+        "decode_ms_p50_during_push_pull": pct(during_update, 50),
+        "decode_ms_p99_during_push_pull": pct(during_update, 99),
+        "decode_ms_p50_during_swap": pct(during, 50), "decode_ms_p99_during_swap": pct(during, 99),
+        "decode_tokens_during_swap": len(during),
+        "decode_tokens_per_s": SERVE_B * len(steady) / (sum(steady) / 1e3) if steady else None,
+        "tokens_per_s": stats["tokens_per_sec"], "tokens": n_tokens, "decode_s": decode_s,
+        "swap_ms_p50": stats["swap_ms_p50"], "swap_ms_max": stats["swap_ms_max"],
+        "swaps": stats["swaps"], "peak_device_memory_bytes": peak_mem, **host,
+        "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "launches": launches, "profile": profiled}
+    return record, launches
+
+
+def profile_generate(node, prompts, new_tokens: int) -> dict:
+    """One ``generate`` under ``torch.profiler``: wall time, the device's busy
+    time (union of kernel intervals), kernel launches and top-level aten ops.
+    The profiler's own host cost inflates the wall time, so the busy share it
+    gives is a lower bound. Only a profiler that cannot start (no CUPTI) makes
+    the breakdown "not measured"; any error of ``generate`` propagates, and a
+    trace with no kernel on the card fails the phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        return {"not_measured": f"torch.profiler did not start: {e!r}"}
+    try:
+        t0 = time.perf_counter()
+        node.generate(prompts, new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        prof.stop()
+    events = prof.events()
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                     if e.device_type == DeviceType.CUDA)
+    if not kernels:
+        raise AssertionError("torch.profiler traced no kernel on the card during generate")
+    busy_us, end = 0.0, float("-inf")
+    by_name: dict[str, float] = {}
+    for a, b, name in kernels:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a)
+    ops = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
+              and e.name.startswith("aten::"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3, "kernels": len(kernels),
+            "aten_ops": ops, "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -104,15 +502,18 @@ def main() -> None:
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build()
-    ptxas = [line.strip() for log in _build.build_logs.values() for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+    # per source, in order: each kernel instance's name, then its registers and spills
+    ptxas = {name: [line.split("ptxas info    : ")[-1].strip() for line in log.splitlines()
+                    if "Compiling entry function" in line or "registers" in line or "spill" in line]
+             for name, log in _build.build_logs.items()}
     emit("build", seconds=time.perf_counter() - t0, libraries=[str(p) for p in libs.values()],
-         ptxas=sorted(set(ptxas)))
+         ptxas=ptxas)
 
     # -- 3. kernel_check --------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = {"fed_agg": 0.0, "fed_opt": 0.0}
     checks = []
+    timings = []
 
     def check(name, got, want, k, shape_note):
         rtol = 1e-5 if k <= 64 else 1e-4
@@ -144,7 +545,6 @@ def main() -> None:
     emit("kernel_check", checks=checks)
 
     # -- 4. kernels: time beside bound, plain version and library call ----------
-    timings = []
     for k, n in TIME_SHAPES:
         ld = -(-n // 32) * 32  # the strategies' stack layout
         x = torch.randn(k, ld, device=dev, generator=gen)[:, :n]
@@ -166,7 +566,15 @@ def main() -> None:
         del x, p, m, v
     emit("kernels", card=card, nvidia_smi=smi, timings=timings)
 
-    # -- 5. federation: the port's main path, end to end -------------------------
+    # -- 5. attn_kernel_check / 6. attn_kernels ----------------------------------
+    attn_checks, max_err_attn = check_attention(dev, gen)
+    max_err.update(max_err_attn)
+    emit("attn_kernel_check", checks=attn_checks)
+    attn_timings = time_attention(dev, gen, card)
+    timings += attn_timings
+    emit("attn_kernels", card=card, nvidia_smi=smi, timings=attn_timings)
+
+    # -- 7. federation: the port's first main path, end to end -------------------
     from repro_torch.api import connect
     from repro_torch.core import AsyncFederatedNode, Callback, FederatedCallback, run_threaded
     from repro_torch.core.partition import partition_dataset
@@ -257,16 +665,33 @@ def main() -> None:
     emit("federation", model="ResNet-18 GN", params=n_params, clients=per_client,
          wall_s=wall, launches=launches, pulled_fed_agg_max_abs_err=err)
 
+    # -- 8. serving_consistency / 9. serving: the port's second main path -------
+    emit("serving_consistency", **serving_consistency(dev))
+    record, serving_launches = serving(dev)
+    emit("serving", **record)
+    launches.update(serving_launches)
+
     # -- summary ----------------------------------------------------------------
-    main_shape = {t["name"]: t for t in timings if t["K"] == 4}
+    main_shape = {t["name"]: t for t in timings
+                  if t.get("K") == 4 or t.get("shape", "").startswith(f"B={SERVE_B} S={SERVE_S}")
+                  or t.get("shape", "").startswith(f"B={SERVE_B} C={SERVE_S + SERVE_NEW}")}
+    sources = {"fed_agg": ("src/repro_torch/csrc/fed_agg.cu", "src/repro/kernels/fed_agg/kernel.py:62"),
+               "fed_opt": ("src/repro_torch/csrc/fed_agg.cu", "src/repro/kernels/fed_agg/kernel.py:144"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/kernel.py:77"),
+               "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention/kernel.py:61")}
     kernels = [{
-        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fed_agg.cu",
-        "replaces": replaces, "launches": launches[name], "max_abs_err": max_err[name],
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": max_err[name],
         "ms": main_shape[name]["kernel_ms"], "plain_ms": main_shape[name]["plain_ms"],
         "bound_ms": main_shape[name]["bound_ms"], "bound_by": main_shape[name]["bound_by"],
         "library_ms": main_shape[name]["library_ms"],
-    } for name, replaces in (("fed_agg", "src/repro/kernels/fed_agg/kernel.py:62"),
-                             ("fed_opt", "src/repro/kernels/fed_agg/kernel.py:144"))]
+    } for name, (source, replaces) in sources.items()]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"the main path never launched {k['name']}")
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

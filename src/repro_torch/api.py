@@ -16,13 +16,15 @@ URI the grammar accepts — the port of ``repro.api.connect``.
     ============  =====================================================
 
 ``shard<G>[x<L>]+`` (gossip-sharded stores) and ``s3://`` parse, but raise
-``NotImplementedError`` until the federation plane is ported (slice 2); so
-does ``serve()``, which comes with the serving tier (slice 3).
+``NotImplementedError`` until the federation plane is ported (slice 3).
+
+``serve(store, arch)`` joins a store read-only as a serving node (the port of
+``repro.api.serve``, without ``mesh=``).
 
 **Transport pipeline specs** (``transport=``): ``full``, ``quantized``,
 either with an ``npz`` or ``zstd`` envelope (``"quantized|zstd"``). Every
 spec of the reference's grammar validates; the delta, topk and family
-policies raise ``NotImplementedError`` when the store is built (slice 2).
+policies raise ``NotImplementedError`` when the store is built (slice 3).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.core.transport import (
     parse_folder_uri,
 )
 
-__all__ = ["connect"]
+__all__ = ["connect", "serve"]
 
 
 def connect(
@@ -83,3 +85,38 @@ def connect(
         else:
             store.start_prefetch(0.1 if prefetch is True else float(prefetch))
     return store
+
+
+def serve(
+    store,
+    arch,
+    *,
+    node_id: str | None = None,
+    reduced: bool = False,
+    poll_interval: float = 0.25,
+    telemetry: "Telemetry | bool | None" = None,
+    start: bool = True,
+    wait: float | None = None,
+    device: Any = "cuda",
+    **node_kwargs: Any,
+):
+    """Join a store read-only as a serving node.
+
+    ``store`` is a store instance or a ``connect()``-able URI; ``arch`` an
+    arch name from ``repro_torch.configs`` or a full ``ModelConfig``. With
+    ``start=True`` (default) the watcher thread is already running on
+    return; ``wait`` additionally blocks up to that many seconds for the
+    first weight set to go live. Returns the :class:`ServingNode`.
+    """
+    from repro_torch.serving import ServingNode
+
+    if isinstance(store, str):
+        store = connect(store)
+    node = ServingNode(store, arch, node_id=node_id, reduced=reduced,
+                       poll_interval=poll_interval, telemetry=telemetry, device=device,
+                       **node_kwargs)
+    if start:
+        node.start()
+        if wait is not None:
+            node.wait_until_deployed(wait)
+    return node

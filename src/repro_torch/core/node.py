@@ -18,7 +18,7 @@ Nodes are transparent to the flat-vector hot path: the store pulls
 tree the trainer receives back views the strategy's device buffer.
 
 Sharded gossip stores (``ShardedFolders``) come with the federation plane
-(slice 2); this module imports nothing of them.
+(slice 3); this module imports nothing of them.
 """
 from __future__ import annotations
 
@@ -95,7 +95,7 @@ class _BaseNode:
             if not isinstance(shared_folder, SharedFolder):
                 raise NotImplementedError(
                     f"{type(shared_folder).__name__} is not a SharedFolder; sharded "
-                    "gossip folders are not ported yet (ROADMAP Queue 1 item 14, slice 2)")
+                    "gossip folders are not ported yet (ROADMAP Queue 1 item 14, slice 3)")
             store = WeightStore(shared_folder, transport=transport)
         elif transport is not None:
             # store.transport is the canonical pipeline spec; compare specs,

@@ -7,10 +7,13 @@ entry. Both packages write and read the same blobs: a blob written by either
 decodes in the other to bit-identical arrays and an equal ``LeafSpec.key``.
 
 Everything here is host-side numpy; tensor leaves are copied to the host on
-the way out. This slice carries the full and quantized update families, the
-flat decode, the npz/zstd envelopes and the strategy-state and obs blobs. The
-delta, top-k, group-summary, super-summary and fleet families come with the
-federation plane (ROADMAP Queue 1, slice 2) and raise ``NotImplementedError``.
+the way out. bf16/fp8 leaves ship as f32, as the reference ships them, and
+decode to CPU tensors of their own dtype: the port needs no ``ml_dtypes``.
+
+The port carries the full and quantized update families, the flat decode, the
+npz/zstd envelopes and the strategy-state and obs blobs. The delta, top-k,
+group-summary, super-summary and fleet families come with the federation
+plane (ROADMAP Queue 1, slice 3) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,8 +24,19 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
-from .tree import LeafSpec, PyTree, as_numpy, path_str, tree_flatten_with_path, tree_map
+from .tree import (
+    NARROW_FLOATS,
+    LeafSpec,
+    PyTree,
+    as_numpy,
+    dtype_name,
+    path_str,
+    torch_dtype,
+    tree_flatten_with_path,
+    tree_map,
+)
 
 _META_KEY = "__meta__"
 _SEP = "|"  # npz keys cannot contain '/' reliably across tools; use '|'
@@ -123,18 +137,21 @@ class FlatUpdate(NodeUpdate):
 
 
 def _wire_leaf(leaf) -> tuple[np.ndarray, str | None]:
-    """A leaf's on-wire array. npz cannot round-trip ml_dtypes, so bf16/fp8
-    ship as f32; returns (array, dtype name to restore on load or None)."""
+    """A leaf's on-wire array. npz cannot round-trip bf16/fp8, so they ship
+    as f32; returns (array, dtype name to restore on load or None)."""
+    name = dtype_name(leaf.dtype) if hasattr(leaf, "dtype") else None
+    if name in NARROW_FLOATS:
+        return np.asarray(as_numpy(leaf), np.float32), name
     arr = as_numpy(leaf)
-    if arr.dtype.kind == "V" or arr.dtype.name in ("bfloat16", "float8_e4m3fn", "float8_e5m2"):
+    if arr.dtype.kind == "V":
         return arr.astype(np.float32), arr.dtype.name
     return arr, None
 
 
-def _restored_dtype(name: str) -> np.dtype:
-    import ml_dtypes
-
-    return np.dtype(getattr(ml_dtypes, name))
+def _restored_leaf(arr: np.ndarray, name: str) -> torch.Tensor:
+    """A leaf that shipped as f32, back in its own dtype: a CPU tensor, since
+    numpy has no bf16/fp8 type."""
+    return torch.from_numpy(np.asarray(arr, np.float32)).to(torch_dtype(name))
 
 
 def _rebuild_tree(order, dtypes, get_leaf) -> dict:
@@ -144,7 +161,7 @@ def _rebuild_tree(order, dtypes, get_leaf) -> dict:
     for key in order:
         leaf = get_leaf(key)
         if key in dtypes:
-            leaf = leaf.astype(_restored_dtype(dtypes[key]))
+            leaf = _restored_leaf(leaf, dtypes[key])
         parts = key.split(_SEP)
         node = tree
         for p in parts[:-1]:
@@ -230,7 +247,7 @@ def _build_wire_spec(order, dtypes, shapes_by_key, quantized) -> LeafSpec:
         if quantized:
             dts.append(np.dtype(np.float32))  # dequantized leaves are f32
         elif key in dtypes:
-            dts.append(_restored_dtype(dtypes[key]))
+            dts.append(dtypes[key])
         else:
             dts.append(shapes_by_key[key][1])
     return LeafSpec(paths, shapes, dts, treedef)
@@ -437,13 +454,13 @@ def deserialize_update_quantized(blob: bytes) -> NodeUpdate:
     return _update_from_meta(params, meta)
 
 
-# --- families that come with the federation plane (slice 2) -------------------
+# --- families that come with the federation plane (slice 3) -------------------
 
 
 def _deferred(name: str, what: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
-            f"{name}: {what} is not ported yet (ROADMAP Queue 1, slice 2: "
+            f"{name}: {what} is not ported yet (ROADMAP Queue 1, slice 3: "
             "the federation plane)")
 
     fn.__name__ = name

@@ -10,7 +10,7 @@ Backends:
     python-multithreading simulation setup.
   * ``DiskFolder``    — a filesystem directory with atomic writes; this is the
     production backend (point it at an NFS/gcsfuse/s3fs mount).
-  * ``S3Folder``      — not ported yet (ROADMAP Queue 1, slice 2); the
+  * ``S3Folder``      — not ported yet (ROADMAP Queue 1, slice 3); the
     class exists so the public API matches and raises ``NotImplementedError``.
   * ``CachingFolder`` — read-through wrapper over any backend: skips
     re-downloading blobs whose per-key ``version`` metadata is unchanged
@@ -318,11 +318,11 @@ class DiskFolder(SharedFolder):
 
 
 class S3Folder(SharedFolder):
-    """S3-backed folder: not ported yet (ROADMAP Queue 1, slice 2)."""
+    """S3-backed folder: not ported yet (ROADMAP Queue 1, slice 3)."""
 
     def __new__(cls, directory: str):
         raise NotImplementedError(
-            "S3Folder is not ported yet (ROADMAP Queue 1, slice 2); use a local "
+            "S3Folder is not ported yet (ROADMAP Queue 1, slice 3); use a local "
             "or mounted path, or memory://")
 
 
@@ -524,7 +524,7 @@ class WeightStore:
         "quantized|npz"            # int8 blobs inside deflate envelopes
 
     (the delta, topk and family policies raise ``NotImplementedError`` until
-    the federation plane is ported, slice 2).
+    the federation plane is ported, slice 3).
 
     ``compress=`` ("none" / "npz" / "zstd") appends the envelope stage for
     callers using legacy names. Readers are policy-oblivious: blobs are
@@ -839,7 +839,7 @@ def make_folder(uri: str):
     outermost-first: 'cache+retry+<base>' caches over the retrying folder.
 
     The sharded (gossip) URIs and ``s3://`` are not ported yet (ROADMAP
-    Queue 1, slice 2) and raise ``NotImplementedError`` once the URI is
+    Queue 1, slice 3) and raise ``NotImplementedError`` once the URI is
     known to be well formed.
 
     .. note:: Most callers want :func:`repro_torch.api.connect`, which wraps
@@ -856,7 +856,7 @@ def make_folder(uri: str):
                     f"shard<G>+ may appear only once in {uri!r}")
             raise NotImplementedError(
                 f"sharded gossip stores ({uri!r}) are not ported yet "
-                "(ROADMAP Queue 1 item 14, slice 2)")
+                "(ROADMAP Queue 1 item 14, slice 3)")
     if base.startswith("memory://"):
         name = base[len("memory://"):].strip("/")
         if name:

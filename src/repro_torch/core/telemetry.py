@@ -350,7 +350,7 @@ def collect_obs(store_uri_or_folder: Any) -> dict[str, list[dict[str, Any]]]:
     """Gather every ``obs/`` payload in a store, node → payloads by seq.
 
     Accepts a ``make_folder`` URI or a ``SharedFolder`` (sharded folders
-    arrive with the gossip store, slice 2). Pure reads — never writes, never
+    arrive with the gossip store, slice 3). Pure reads — never writes, never
     aggregates weights.
     """
     from .serialize import deserialize_obs_blob

@@ -29,7 +29,7 @@ here too)::
 
 This slice carries the ``full`` and ``quantized`` policies with both
 envelopes. The ``delta``, ``topk`` and ``family`` policies (ROADMAP Queue 1
-item 13, slice 2) raise ``NotImplementedError`` when a pipeline using them is
+item 13, slice 3) raise ``NotImplementedError`` when a pipeline using them is
 built, and a reader that meets a delta blob written by a ``repro`` node raises
 too: it never returns a wrong update.
 """
@@ -56,7 +56,7 @@ from repro_torch.logs import get_logger
 
 _log = get_logger("transport")
 
-_SLICE_2 = "ROADMAP Queue 1 item 13, slice 2"
+_SLICE_3 = "ROADMAP Queue 1 item 13, slice 3"
 
 
 class _LruCache:
@@ -544,7 +544,7 @@ class TransportPipeline:
         if policy[0] not in _CODECS:
             raise NotImplementedError(
                 f"transport policy {policy[0]!r} ({self.spec!r}) is not ported yet "
-                f"({_SLICE_2}); the port writes 'full' or 'quantized' blobs")
+                f"({_SLICE_3}); the port writes 'full' or 'quantized' blobs")
         self.compress = envelope
         if envelope == "zstd":
             from .serialize import _zstd_module
@@ -589,7 +589,7 @@ class TransportPipeline:
             raise NotImplementedError(
                 f"node {node_id!r} deposited a delta blob (a repro node with a "
                 f"delta/topk/family transport); delta decoding is not ported "
-                f"yet ({_SLICE_2})")
+                f"yet ({_SLICE_3})")
         if meta.get("quantized"):
             return QuantizedCodec.decode_wire(blob, meta, ctx)
         return FullCodec.decode_wire(blob, meta, ctx)

@@ -32,8 +32,10 @@ PyTree = Any
 _F32_EXACT = frozenset(
     {"float32", "float16", "bfloat16", "float8_e4m3fn", "float8_e5m2"}
 )
-# numpy has no native type for these; ml_dtypes supplies them (imported lazily)
-_ML_DTYPES = frozenset({"bfloat16", "float8_e4m3fn", "float8_e5m2"})
+# Narrow floats numpy has no type of its own for (the reference takes them
+# from ml_dtypes, a JAX dependency the port does without). The port keeps
+# them as torch tensors and names; on the host side of numpy they are f32.
+NARROW_FLOATS = frozenset({"bfloat16", "float8_e4m3fn", "float8_e5m2"})
 
 
 # --------------------------------------------------------------------------
@@ -106,54 +108,57 @@ def path_str(path: tuple) -> str:
 # --------------------------------------------------------------------------
 
 
-def np_dtype(dtype) -> np.dtype:
-    """numpy dtype of a torch or numpy dtype (bf16/fp8 via ml_dtypes)."""
+def dtype_name(dtype) -> str:
+    """numpy's name of a torch dtype, numpy dtype or dtype name ("float32",
+    "bfloat16", ...): what ``LeafSpec.key`` hashes."""
     if isinstance(dtype, torch.dtype):
-        name = str(dtype).removeprefix("torch.")
-        if name in _ML_DTYPES:
-            import ml_dtypes
-
-            return np.dtype(getattr(ml_dtypes, name))
-        return np.dtype(name)
-    return np.dtype(dtype)
+        return str(dtype).removeprefix("torch.")
+    if isinstance(dtype, str) and dtype in NARROW_FLOATS:
+        return dtype
+    return np.dtype(dtype).name  # an ml_dtypes dtype of a JAX leaf names itself
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """torch dtype of a numpy (or torch) dtype."""
+    """torch dtype of a numpy dtype, a dtype name or a torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    return getattr(torch, np.dtype(dtype).name)
+    return getattr(torch, dtype_name(dtype))
 
 
 def as_numpy(leaf) -> np.ndarray:
-    """Host numpy view/copy of a leaf, keeping its dtype."""
+    """Host numpy view/copy of a leaf's values. Numpy has no bf16/fp8 type,
+    so those tensors widen to f32 (exactly); other dtypes are kept."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
-        if str(t.dtype).removeprefix("torch.") in _ML_DTYPES:
-            return t.float().numpy().astype(np_dtype(t.dtype))  # exact round trip
-        return t.numpy()
+        return t.float().numpy() if dtype_name(t.dtype) in NARROW_FLOATS else t.numpy()
     return np.asarray(leaf)
+
+
+def as_host(leaf):
+    """Host copy of a leaf that keeps its dtype: numpy, except bf16/fp8
+    tensors, which stay CPU tensors (numpy has no type for them)."""
+    if isinstance(leaf, torch.Tensor) and dtype_name(leaf.dtype) in NARROW_FLOATS:
+        return leaf.detach().cpu()
+    return as_numpy(leaf)
 
 
 def as_tensor(leaf) -> torch.Tensor:
     """Tensor of a leaf (host numpy becomes a CPU tensor sharing memory where
-    torch has the dtype; ml_dtypes leaves widen to f32)."""
+    torch has the dtype; a JAX-side bf16/fp8 numpy leaf widens to f32)."""
     if isinstance(leaf, torch.Tensor):
         return leaf
     arr = np.asarray(leaf)
-    if arr.dtype.name in _ML_DTYPES:
+    if arr.dtype.name in NARROW_FLOATS:
         arr = arr.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
-def _shape_dtype(leaf) -> tuple[tuple[int, ...], np.dtype]:
-    if isinstance(leaf, torch.Tensor):
-        return tuple(int(s) for s in leaf.shape), np_dtype(leaf.dtype)
+def _shape_dtype(leaf) -> tuple[tuple[int, ...], str]:
     shape, dtype = getattr(leaf, "shape", None), getattr(leaf, "dtype", None)
     if shape is None or dtype is None:
         arr = np.asarray(leaf)
         shape, dtype = arr.shape, arr.dtype
-    return tuple(int(s) for s in shape), np.dtype(dtype)
+    return tuple(int(s) for s in shape), dtype_name(dtype)
 
 
 class LeafSpec:
@@ -169,7 +174,7 @@ class LeafSpec:
         self.paths: tuple[str, ...] = tuple(paths)
         self.shapes: tuple[tuple[int, ...], ...] = tuple(
             tuple(int(d) for d in s) for s in shapes)
-        self.dtypes: tuple[np.dtype, ...] = tuple(np_dtype(d) for d in dtypes)
+        self.dtypes: tuple[str, ...] = tuple(dtype_name(d) for d in dtypes)
         self.treedef = treedef
         self.sizes: tuple[int, ...] = tuple(int(np.prod(s)) for s in self.shapes)
         offsets = np.zeros(len(self.sizes) + 1, np.int64)
@@ -180,9 +185,9 @@ class LeafSpec:
         self.index: dict[str, int] = {p: i for i, p in enumerate(self.paths)}
         self._family_views: dict[tuple, "FamilyView"] = {}
         # True when flatten→unflatten is value-exact (every leaf f32-embeddable)
-        self.f32_exact: bool = all(d.name in _F32_EXACT for d in self.dtypes)
+        self.f32_exact: bool = all(d in _F32_EXACT for d in self.dtypes)
         self.key: str = hashlib.sha256(
-            repr((self.paths, self.shapes, tuple(d.name for d in self.dtypes))).encode()
+            repr((self.paths, self.shapes, self.dtypes)).encode()
         ).hexdigest()[:16]
 
     @classmethod
@@ -239,9 +244,9 @@ class LeafSpec:
 
     def unflatten(self, vec: "np.ndarray | torch.Tensor") -> PyTree:
         """Flat vector → tree with the original shapes/dtypes. A numpy vector
-        gives numpy leaves, a tensor gives tensor leaves on its device.
-        Float32 leaves are *views* into ``vec`` (zero copy); treat them as
-        read-only."""
+        gives numpy leaves (bf16/fp8 leaves: CPU tensors), a tensor gives
+        tensor leaves on its device. Float32 leaves are *views* into ``vec``
+        (zero copy); treat them as read-only."""
         if isinstance(vec, torch.Tensor):
             vec = vec.reshape(-1)
             if vec.numel() != self.num_params:
@@ -252,7 +257,8 @@ class LeafSpec:
             vec = np.asarray(vec).reshape(-1)
             if vec.size != self.num_params:
                 raise ValueError(f"{vec.size} params vs spec's {self.num_params}")
-            leaves = [np.asarray(vec[o:o + n], dtype=d).reshape(s)
+            leaves = [torch.from_numpy(vec[o:o + n]).to(torch_dtype(d)).reshape(s)
+                      if d in NARROW_FLOATS else np.asarray(vec[o:o + n], dtype=d).reshape(s)
                       for o, n, d, s in zip(self.offsets, self.sizes, self.dtypes, self.shapes)]
         return tree_unflatten(self.treedef, leaves)
 
@@ -381,5 +387,6 @@ class FamilyView:
 
 
 def tree_to_numpy(tree: PyTree) -> PyTree:
-    """Device→host copy; the wire and the store live on the host."""
-    return tree_map(as_numpy, tree)
+    """Device→host copy; the wire and the store live on the host. Leaves
+    become numpy arrays, bf16/fp8 leaves CPU tensors (``as_host``)."""
+    return tree_map(as_host, tree)

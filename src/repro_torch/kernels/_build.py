@@ -115,3 +115,10 @@ def load(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
             _libs[name] = lib
         return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error (a refused
+    launch never runs, and a later synchronise would not say so)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -75,11 +75,6 @@ def _vec(ld: int, *tensors: torch.Tensor) -> int:
     return 4 if aligned else 1
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def fed_agg(stacked: torch.Tensor, weights: torch.Tensor, *,
             out: torch.Tensor | None = None) -> torch.Tensor:
     """stacked (K, N) f32, weights (K,) f32 on one card → (N,) f32 = weightsᵀ·stacked,
@@ -95,7 +90,7 @@ def fed_agg(stacked: torch.Tensor, weights: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_fed_agg(stacked.data_ptr(), ld, weights.data_ptr(), out.data_ptr(),
                                 k, n, _vec(ld, stacked, out), stream)
-    _raise_on(err, "fed_agg")
+    _build.check_launch(err, "fed_agg")
     _count("fed_agg")
     return out
 
@@ -128,6 +123,6 @@ def fed_opt(stacked: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
             v.data_ptr(), xo.data_ptr(), mo.data_ptr(), vo.data_ptr(), k, n,
             VARIANTS[variant], float(lr), float(b1), 1.0 - float(b1), float(b2),
             1.0 - float(b2), float(tau), _vec(ld, stacked, x, m, v, xo, mo, vo), stream)
-    _raise_on(err, "fed_opt")
+    _build.check_launch(err, "fed_opt")
     _count("fed_opt")
     return xo, mo, vo

@@ -1,3 +1,12 @@
-from .cnn import MnistCNN, ResNet, load_jax_params
+from .cnn import MnistCNN, ResNet
+from .common import ModelConfig, load_jax_params
+from .transformer import DecoderLM
 
-__all__ = ["MnistCNN", "ResNet", "load_jax_params"]
+
+def build_model(cfg: ModelConfig):
+    """Config → model object with init/apply (+decode for LMs). Raises
+    ``NotImplementedError`` for what the port does not build yet."""
+    return DecoderLM(cfg)
+
+
+__all__ = ["ModelConfig", "DecoderLM", "MnistCNN", "ResNet", "build_model", "load_jax_params"]

@@ -1,0 +1,209 @@
+"""GQA/MQA attention (+qk_norm, LoRA on q, sliding window, softcap) — the
+port of the GQA part of ``repro.models.attention``.
+
+Two entry points, as in the reference:
+  * full-sequence causal (prefill): ``attn_full`` / ``attn_prefill``,
+  * single-token decode against a fixed-capacity ring KV cache: ``attn_decode``
+    (capacity C = max_len for full attention, = window for sliding attention).
+
+On CUDA tensors the attention itself always runs in the port's hand-written
+kernels: full/prefill through the ``flash_attention`` op, decode through the
+``decode_attention`` op. Neither TPU kernel has a logit softcap, so a config
+with one raises ``NotImplementedError`` on the card; on the CPU it takes the
+reference's masked softmax (``_sdpa``). CPU tensors take the ops' plain
+versions, which compute the reference's ``_sdpa``.
+
+Unlike the reference's pure functions, the cache is updated *in place* (and
+returned): a cache is a few GB at serving's batch sizes, and a functional
+update would copy it every token. MLA and ``chunked_sdpa`` are not ported yet
+(ROADMAP Queue 1, item 17).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+
+from .common import ModelConfig, apply_rope, dense_apply, dense_init, rmsnorm_apply, rmsnorm_init
+
+NEG_INF = -1e30
+
+
+def _no_softcap_on_cuda(t: torch.Tensor, cfg: ModelConfig) -> None:
+    if t.is_cuda:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_logit_softcap={cfg.attn_logit_softcap} has no CUDA kernel "
+            "(neither TPU kernel has a softcap; ROADMAP Queue 2)")
+
+
+def _maybe_softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap > 0:
+        scores = torch.tanh(scores / cap) * cap
+    return scores
+
+
+def _sdpa(q, k, v, mask, softcap: float) -> torch.Tensor:
+    """q: (B,S,KV,G,hd), k/v: (B,T,KV,hd), mask: (B,S,T) or (S,T)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
+    scores = _maybe_softcap(scores, softcap)
+    mask_b = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+    scores = torch.where(mask_b, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.to(v.dtype)
+
+
+def causal_mask(seq: int, window: int = 0, offset: int = 0, device=None) -> torch.Tensor:
+    """(S, T) causal mask; optional sliding window; offset for prefix caches."""
+    qpos = torch.arange(seq, device=device)[:, None] + offset
+    kpos = torch.arange(seq + offset, device=device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg: ModelConfig, lead: tuple = ()) -> dict:
+    hd = cfg.head_dim_
+    dt = cfg.torch_dtype
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dt, lead=lead),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, lead=lead),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, lead=lead),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dt, lead=lead),
+    }
+    if cfg.lora_rank:
+        # LoRA adapter on the q projection: B starts at zero so the adapter
+        # is initially a no-op (standard LoRA init).
+        p["lora_a"] = dense_init(gen, cfg.d_model, cfg.lora_rank, dt, lead=lead)
+        p["lora_b"] = dense_init(gen, cfg.lora_rank, cfg.n_heads * hd, dt, scale=0.0,
+                                 lead=lead)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(gen, hd, dt, lead=lead)
+        p["k_norm"] = rmsnorm_init(gen, hd, dt, lead=lead)
+    return p
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    q_flat = dense_apply(p["wq"], x)
+    if "lora_a" in p:
+        q_flat = q_flat + dense_apply(p["lora_b"], dense_apply(p["lora_a"], x))
+    q = q_flat.reshape(B, S, cfg.n_heads, hd)
+    k = dense_apply(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = dense_apply(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _full_causal_out(cfg: ModelConfig, qg, k, v, *, window: int):
+    """Full-sequence causal attention shared by attn_full / attn_prefill."""
+    if cfg.attn_logit_softcap == 0:
+        return flash_ops.flash_attention(qg, k, v, window=window)
+    _no_softcap_on_cuda(qg, cfg)
+    return _sdpa(qg, k, v, causal_mask(qg.shape[1], window, device=qg.device),
+                 cfg.attn_logit_softcap)
+
+
+def attn_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              window: int | None = None) -> torch.Tensor:
+    """Full-sequence causal attention (prefill without a cache)."""
+    B, S, _ = x.shape
+    window = cfg.sliding_window if window is None else window
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim_)
+    out = _full_causal_out(cfg, qg, k, v, window=window)
+    return dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim_))
+
+
+def fill_ring(cache: dict, entries: dict, seq: int) -> dict:
+    """Scatter a length-``seq`` prefix (positions 0..seq-1) into a ring cache,
+    in place. Only the last min(seq, capacity) positions survive — exactly
+    the state a token-at-a-time decode loop would have left behind after
+    wrapping; restricting the scatter to them keeps slot indices unique."""
+    slot_pos = cache["slot_pos"]
+    capacity = slot_pos.shape[0]
+    keep = min(seq, capacity)
+    pos = torch.arange(seq - keep, seq, dtype=torch.int32, device=slot_pos.device)
+    slots = (pos % capacity).long()
+    for name, val in entries.items():
+        cache[name][:, slots] = val[:, seq - keep:].to(cache[name].dtype)
+    slot_pos[slots] = pos
+    return cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *,
+                    device: "str | torch.device" = "cpu", lead: tuple = ()) -> dict:
+    """Ring-buffer KV cache. ``capacity`` = window for sliding attention,
+    = max_len for full attention."""
+    dt = dtype or cfg.torch_dtype
+    hd = cfg.head_dim_
+    shape = (*lead, batch, capacity, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "slot_pos": torch.full((*lead, capacity), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int, *,
+                window: int | None = None) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x: (B,1,D); pos: the global position (a host int).
+    Writes the token's k/v into slot pos % C of ``cache`` in place."""
+    B = x.shape[0]
+    hd = cfg.head_dim_
+    pos = int(pos)
+    window = cfg.sliding_window if window is None else window
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    slot_pos = cache["slot_pos"]
+    slot = pos % slot_pos.shape[0]
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    slot_pos[slot] = pos
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window and window > 0:
+        valid &= slot_pos > pos - window
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, 1, cfg.n_kv_heads, G, hd)
+    if cfg.attn_logit_softcap == 0:
+        out = dec_ops.decode_attention(qg, cache["k"], cache["v"], valid)
+    else:
+        _no_softcap_on_cuda(qg, cfg)
+        out = _sdpa(qg, cache["k"], cache["v"], valid[None, None, :], cfg.attn_logit_softcap)
+    out = out.reshape(B, 1, cfg.n_heads * hd)
+    return dense_apply(p["wo"], out), cache
+
+
+def attn_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
+                 window: int | None = None) -> tuple[torch.Tensor, dict]:
+    """``attn_full`` that also fills the decode ring cache — serving's bulk
+    prefill. Equivalent to pushing the prompt through ``attn_decode`` one
+    token at a time (same projections, same rope positions, same ring
+    occupancy) at full-sequence matmul cost. ``cache`` must be fresh
+    (``init_attn_cache``); positions start at 0."""
+    B, S, _ = x.shape
+    window = cfg.sliding_window if window is None else window
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim_)
+    out = _full_causal_out(cfg, qg, k, v, window=window)
+    out = dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim_))
+    return out, fill_ring(cache, {"k": k, "v": v}, S)

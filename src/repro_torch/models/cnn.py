@@ -19,12 +19,12 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.tree import LeafSpec, tree_map
+from repro_torch.core.tree import tree_map
 from repro_torch.kernels import resolve_device
+from repro_torch.models.common import load_jax_params  # noqa: F401  (re-exported)
 
 
 def _generator(rng: "int | torch.Generator | None") -> torch.Generator | None:
@@ -208,18 +208,3 @@ class ResNet(_Model):
             for b in range(self.bps):
                 x = _block(params[f"s{s}b{b}"], x, stride if b == 0 else 1)
         return _dense(params["fc"], x.mean(dim=(2, 3)))
-
-
-def load_jax_params(model: _Model, tree: dict, *, device: "str | torch.device" = "cuda") -> dict:
-    """The reference's parameters (a nested dict of numpy arrays, e.g.
-    ``np.asarray`` of each leaf of ``repro.models.cnn.MnistCNN().init(key)``)
-    as the port's tree on ``device``. Raises unless the tree's ``LeafSpec.key``
-    equals the one of the port's own layout for ``model``."""
-    want, got = LeafSpec.of(model.abstract()), LeafSpec.of(tree)
-    if got.key != want.key:
-        diff = next(((a, sa, b, sb) for a, sa, b, sb in zip(
-            got.paths, got.shapes, want.paths, want.shapes) if (a, sa) != (b, sb)), None)
-        raise ValueError(f"parameter layout mismatch: got {got}, want {want}; "
-                         f"first difference (got vs want): {diff}")
-    dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)

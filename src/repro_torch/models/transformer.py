@@ -1,0 +1,206 @@
+"""Decoder-only LM assembly — the port of ``repro.models.transformer`` for
+``attn`` blocks (pre-norm GQA attention + pre-norm MLP).
+
+The parameter tree is the reference's, leaf for leaf: ``embed/table``,
+``blocks/u<u>_<kind>/...`` with a leading group axis over the stacked layers,
+``tail/t<i>_<kind>/...`` for a remainder, ``final_norm``, and ``unembed`` when
+embeddings are untied. So ``LeafSpec.key`` and the wire match, and a JAX
+node's weights deploy in the port. Where the reference scans over the group
+axis, the port loops in Python over the stacked leaves' slices (views).
+
+Block kinds other than ``attn`` (``moe_attn``, ``ssm``, ``rglru``), MLA,
+encoder-decoders and VLM prefixes are not ported yet (ROADMAP Queue 1,
+item 17): building such a model raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.tree import tree_flatten_with_path, tree_unflatten
+from repro_torch.kernels import resolve_device
+
+from . import attention as attn_mod
+from .common import (
+    ModelConfig,
+    embedding_apply,
+    embedding_init,
+    mlp_apply,
+    mlp_init,
+    rmsnorm_apply,
+    rmsnorm_init,
+    unembed_apply,
+)
+
+PORTED_KINDS = ("attn",)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
+    what = None
+    if cfg.is_encdec:
+        what = "encoder-decoder models"
+    elif cfg.attention == "mla":
+        what = "MLA attention"
+    else:
+        missing = sorted(set(cfg.pattern) - set(PORTED_KINDS))
+        if missing:
+            what = f"block kinds {missing}"
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} are not ported to PyTorch yet (ROADMAP Queue 1, item 17); "
+            f"the port builds {list(PORTED_KINDS)} blocks with GQA attention")
+
+
+def _init_block(gen, cfg: ModelConfig, lead: tuple = ()) -> dict:
+    dt = cfg.torch_dtype
+    return {
+        "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+        "attn": attn_mod.init_attention(gen, cfg, lead=lead),
+        "norm2": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+        "mlp": mlp_init(gen, cfg, lead=lead),
+    }
+
+
+def _apply_block_full(p, cfg: ModelConfig, x, *, window_override=None):
+    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    x = x + attn_mod.attn_full(p["attn"], cfg, h, window=window_override)
+    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.activation)
+
+
+def _apply_block_decode(p, cfg: ModelConfig, x, cache, pos, *, window_override=None):
+    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    a, cache = attn_mod.attn_decode(p["attn"], cfg, h, cache, pos, window=window_override)
+    x = x + a
+    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.activation), cache
+
+
+def _apply_block_prefill(p, cfg: ModelConfig, x, cache, *, window_override=None):
+    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    a, cache = attn_mod.attn_prefill(p["attn"], cfg, h, cache, window=window_override)
+    x = x + a
+    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.activation), cache
+
+
+def _cache_capacity(cfg: ModelConfig, capacity: int) -> int:
+    window = cfg.sliding_window
+    return min(capacity, window) if window else capacity
+
+
+class DecoderLM:
+    def __init__(self, cfg: ModelConfig):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.pattern = cfg.pattern
+        U = len(self.pattern)
+        self.n_groups = cfg.n_layers // U
+        self.tail = tuple(self.pattern[: cfg.n_layers % U])
+
+    # -- init ----------------------------------------------------------------
+    def _build(self, gen) -> dict:
+        cfg = self.cfg
+        params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model, cfg.torch_dtype)}
+        params["blocks"] = {f"u{u}_{kind}": _init_block(gen, cfg, lead=(self.n_groups,))
+                            for u, kind in enumerate(self.pattern)}
+        if self.tail:
+            params["tail"] = {f"t{i}_{kind}": _init_block(gen, cfg)
+                              for i, kind in enumerate(self.tail)}
+        params["final_norm"] = rmsnorm_init(gen, cfg.d_model, cfg.torch_dtype)
+        if not cfg.tie_embeddings:
+            params["unembed"] = embedding_init(gen, cfg.padded_vocab, cfg.d_model,
+                                               cfg.torch_dtype)
+        return params
+
+    def init(self, rng: "int | torch.Generator" = 0, *,
+             device: "str | torch.device" = "cuda") -> dict:
+        """Random parameters drawn on ``device`` from a seed (or a generator
+        on that device)."""
+        if isinstance(rng, torch.Generator):
+            gen = rng
+        else:
+            gen = torch.Generator(device=resolve_device(device)).manual_seed(int(rng))
+        return self._build(gen)
+
+    def abstract(self) -> dict:
+        """The parameter tree as meta tensors: shapes and dtypes, no memory."""
+        return self._build(None)
+
+    # -- layer iteration ----------------------------------------------------------
+    def _per_group(self, stacked: dict) -> list[dict]:
+        """Per-group views of a stacked tree ({key: leaves with a leading
+        group axis}, a ``tail`` entry aside): one ``unbind`` per leaf."""
+        leaves, treedef = tree_flatten_with_path(
+            {key: sub for key, sub in stacked.items() if key != "tail"})
+        per_leaf = [leaf.unbind(0) for _, leaf in leaves]
+        return [tree_unflatten(treedef, [views[g] for views in per_leaf])
+                for g in range(self.n_groups)]
+
+    def _layers(self, params: dict, cache: dict | None = None):
+        """(block params, block cache) per layer, in order. Stacked groups
+        give views into their leaves' slices, so in-place cache writes land
+        in the stacked cache."""
+        p_views = self._per_group(params["blocks"])
+        c_views = None if cache is None else self._per_group(cache)
+        for g in range(self.n_groups):
+            for u, kind in enumerate(self.pattern):
+                key = f"u{u}_{kind}"
+                yield p_views[g][key], None if cache is None else c_views[g][key]
+        for i, kind in enumerate(self.tail):
+            key = f"t{i}_{kind}"
+            yield params["tail"][key], None if cache is None else cache["tail"][key]
+
+    def _embed(self, params, tokens, extra_embeds=None):
+        if extra_embeds is not None:
+            raise NotImplementedError(
+                "VLM / audio prefixes are not ported yet (ROADMAP Queue 1, item 17)")
+        cfg = self.cfg
+        # the reference scales by sqrt(d_model) rounded to the model's dtype
+        scale = torch.tensor(cfg.d_model**0.5, dtype=cfg.torch_dtype).item()
+        return embedding_apply(params["embed"], tokens) * scale
+
+    def _logits(self, params, x):
+        x = rmsnorm_apply(params["final_norm"], x, self.cfg.norm_eps)
+        return unembed_apply(params.get("unembed", params["embed"]), x)
+
+    # -- full forward ----------------------------------------------------------
+    def apply(self, params, tokens, extra_embeds=None, *, window_override=None):
+        """→ (logits (B,S,padded_vocab), aux_loss)."""
+        x = self._embed(params, tokens, extra_embeds)
+        for p, _ in self._layers(params):
+            x = _apply_block_full(p, self.cfg, x, window_override=window_override)
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # -- decode -------------------------------------------------------------------
+    def init_cache(self, batch: int, capacity: int, *, window_override=None,
+                   device: "str | torch.device" = "cuda") -> dict:
+        cfg = self.cfg if window_override is None else self.cfg.replace(
+            sliding_window=window_override)
+        dev = resolve_device(device)
+        cap = _cache_capacity(cfg, capacity)
+        caches = {f"u{u}_{kind}": attn_mod.init_attn_cache(cfg, batch, cap, device=dev,
+                                                           lead=(self.n_groups,))
+                  for u, kind in enumerate(self.pattern)}
+        if self.tail:
+            caches["tail"] = {f"t{i}_{kind}": attn_mod.init_attn_cache(cfg, batch, cap,
+                                                                       device=dev)
+                              for i, kind in enumerate(self.tail)}
+        return caches
+
+    def decode_step(self, params, token, cache, pos, *, window_override=None):
+        """token: (B,) int; pos: the position (host int) → (logits
+        (B,padded_vocab), cache). The cache is updated in place."""
+        x = self._embed(params, token[:, None])
+        for p, c in self._layers(params, cache):
+            x, _ = _apply_block_decode(p, self.cfg, x, c, pos, window_override=window_override)
+        return self._logits(params, x[:, 0]), cache
+
+    def prefill(self, params, tokens, cache, extra_embeds=None, *, window_override=None):
+        """Bulk prefill: one full-sequence pass that fills a *fresh* decode
+        cache (``init_cache``) in place and returns the last position's
+        logits. Positions start at 0. → (logits (B, padded_vocab), cache)."""
+        x = self._embed(params, tokens, extra_embeds)
+        for p, c in self._layers(params, cache):
+            x, _ = _apply_block_prefill(p, self.cfg, x, c, window_override=window_override)
+        return self._logits(params, x[:, -1]), cache

@@ -12,7 +12,7 @@ Adam follows the reference exactly — ``m/bc1 / (sqrt(v/bc2) + eps)`` —
 which places eps and the bias corrections differently from
 ``torch.optim.Adam``. Implemented: sgd (+momentum/nesterov), adam, adamw and
 the constant / linear / warmup-cosine schedules. adafactor, clipping and
-accumulation come with the LLM slice (ROADMAP Queue 1, slice 3).
+accumulation come with the LLM slice (ROADMAP Queue 1, slice 2).
 """
 from __future__ import annotations
 

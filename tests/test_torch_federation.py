@@ -230,9 +230,9 @@ def test_connect_uris():
     assert api.connect("memory://").node_ids() == []
     for uri in ("cache+memory://x", "retry+cache+memory://y"):
         assert api.connect(uri, transport="quantized|npz").transport == "quantized|npz"
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         api.connect("shard4+memory://z")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         api.connect("s3://bucket/prefix")
     with pytest.raises(ValueError):
         api.connect("memory://", transport="bogus")

@@ -5,6 +5,8 @@ Both packages must flatten a parameter tree to the same leaf order, paths and
 bit-identical arrays. Inputs are made with numpy from a seed and handed to
 both packages.
 """
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -44,7 +46,7 @@ def _unsorted_tree(rng):
 def _assert_same_layout(port_spec, ref_spec):
     assert port_spec.paths == ref_spec.paths
     assert port_spec.shapes == ref_spec.shapes
-    assert [d.name for d in port_spec.dtypes] == [d.name for d in ref_spec.dtypes]
+    assert list(port_spec.dtypes) == [d.name for d in ref_spec.dtypes]
     assert port_spec.key == ref_spec.key
 
 
@@ -157,6 +159,37 @@ def test_bf16_tensor_leaves_ship_as_reference_does():
     assert LeafSpec.of({"w": t}).key == JLeafSpec.of({"w": leaf}).key
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float8_e4m3fn"])
+def test_narrow_float_wire_round_trip_without_ml_dtypes(tmp_path, monkeypatch, dtype):
+    """bf16/fp8 leaves cross the wire both ways with ``ml_dtypes`` hidden from
+    the port: a JAX-pushed blob decodes in the port to the same values (as
+    torch tensors of that dtype) and the same ``LeafSpec.key``, flat and tree
+    path alike, and a port-pushed blob decodes in the reference."""
+    rng = np.random.default_rng(7)
+    jtree = {"w": np.asarray(jax.numpy.asarray(rng.normal(size=(6, 5)), dtype)),
+             "b": rng.normal(size=(5,)).astype(np.float32)}
+    folder = str(tmp_path)
+    jstore.WeightStore(jstore.DiskFolder(folder)).push(JNodeUpdate(jtree, 3, "jax", counter=1))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "ml_dtypes", None)
+        (flat,) = tstore.WeightStore(tstore.DiskFolder(folder)).pull()
+        assert flat.spec.key == JLeafSpec.of(jtree).key and flat.spec.dtypes[1] == dtype
+        np.testing.assert_array_equal(flat.flat, JLeafSpec.of(jtree).flatten(jtree))
+        tree = tser.deserialize_update(tstore.DiskFolder(folder).get("latest/jax")).params
+        assert tree["w"].dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(tree["w"].float().numpy(), jtree["w"].astype(np.float32))
+        assert LeafSpec.of(tree).key == flat.spec.key
+        tstore.WeightStore(tstore.DiskFolder(folder)).push(
+            NodeUpdate({"w": (-tree["w"].float()).to(tree["w"].dtype),
+                        "b": torch.from_numpy(jtree["b"])}, 2, "torch"))
+    back = {u.node_id: u for u in jstore.WeightStore(jstore.DiskFolder(folder)).pull()}
+    assert back["torch"].spec.key == back["jax"].spec.key
+    np.testing.assert_array_equal(back["torch"].flat[5:], -back["jax"].flat[5:])
+    leaf = jser.deserialize_update(jstore.DiskFolder(folder).get("latest/torch")).params["w"]
+    assert leaf.dtype == jtree["w"].dtype
+    np.testing.assert_array_equal(leaf.astype(np.float32), -jtree["w"].astype(np.float32))
+
+
 def test_state_and_obs_blobs_cross_packages(tmp_path):
     state = {"x": torch.arange(5, dtype=torch.float32), "m": torch.ones(5)}
     blob = tser.serialize_strategy_state("n1", "fedadam", 3, state)
@@ -190,7 +223,7 @@ def test_delta_blobs_raise_instead_of_decoding_wrongly(tmp_path):
                                   "family(adapters=full)"])
 def test_deferred_transports_validate_then_raise(spec):
     assert ttransport.normalize_transport(spec) == jtransport.normalize_transport(spec)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         tstore.WeightStore(tstore.InMemoryFolder(), transport=spec)
 
 
