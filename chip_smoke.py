@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once), holds each one against its plain PyTorch version at
 the main paths' shapes and times it beside its bound, then drives the port's
-two main paths end to end:
+main paths end to end:
 
 * the federation loop: four threaded clients (two FedAvg, two FedAdam) train
   the GroupNorm ResNet-18 at full width and federate through a disk folder
@@ -14,7 +14,10 @@ two main paths end to end:
   bf16, made from a seed) to a store, ``api.serve`` deploys them, batches of
   8 prompts x 512 tokens decode 64 greedy tokens each, and a second push
   hot-swaps new weights in while traffic runs (``flash_attention`` prefill,
-  ``decode_attention`` per token).
+  ``decode_attention`` per token);
+* the same for the reference's serving default, mamba2-130m at full width
+  (bf16, all 24 layers), with batches of 8 prompts x 2048 tokens (``ssd_scan``
+  in every layer of the bulk prefill).
 
 Prints one JSON line per phase, then the card's name and power limit, the
 kernel summary and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -51,6 +54,17 @@ OPT_HP = dict(lr=0.3, b1=0.9, b2=0.95, tau=1e-2)
 # consistency check runs the same widths in f32 at CONSIST_LAYERS layers.
 SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW = "granite-3-2b", 8, 512, 64
 CONSIST_LAYERS, CONSIST_B, CONSIST_S, CONSIST_NEW = 4, 4, 128, 16
+# Mamba2 serving: mamba2-130m at full width (bf16), batches of SSM_B prompts x
+# SSM_S tokens decoding SSM_NEW greedy tokens; its consistency check runs the
+# same widths in f32 at CONSIST_LAYERS layers, with a ragged S (1000 = 3
+# chunks of 256 and a partial one).
+SSM_ARCH, SSM_B, SSM_S, SSM_NEW = "mamba2-130m", 8, 2048, 64
+SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW = 4, 1000, 16
+# ssd_scan checks: the reference's sweeps (tests/test_kernels.py:186-190, f32,
+# its 1e-4), then model layout with B/C shared by the heads.
+SSD_SWEEPS = [(2, 128, 64, 32, 32), (3, 256, 64, 128, 64), (1, 512, 128, 64, 128),
+              (2, 256, 64, 128, 256)]  # BH, S, P, N, chunk
+SSD_TOL = 1e-4
 # Attention checks: the reference's sweeps (tests/test_kernels.py), the
 # serving path's shapes, ragged S / C and windows.
 FLASH_CHECK = [  # B, S, KV, G, hd, window
@@ -245,37 +259,169 @@ def time_attention(dev, gen, card) -> list:
     return timings
 
 
-def serving_consistency(dev) -> dict:
-    """granite-3-2b at full width in f32, cut to CONSIST_LAYERS layers: the
-    flash-prefill path (``serve_batch``) and the decode-kernel-only path
-    (``serve_batch_loop``) give the same greedy tokens, and the prefill's
-    logits on the card agree with the plain versions' on the CPU."""
+def ssd_case(dev, gen, B, S, H, P, N, dtype):
+    """Mamba2 SSD inputs as the model makes them: dt = softplus(N(0,1)),
+    A = -(1..H) (the deterministic A_log = log(1..H)), x = xh·dt in ``dtype``,
+    dA = dt·A in f32 (down to ~-17 per step in the last heads), B/C (B,S,N)
+    shared by every head."""
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=dev, generator=gen))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    x = (torch.randn(B, S, H, P, device=dev, generator=gen) * 0.5).to(dtype) * dt[..., None].to(dtype)
+    Bm, Cm = ((torch.randn(B, S, N, device=dev, generator=gen) * 0.5).to(dtype) for _ in range(2))
+    return x, dt * A, Bm, Cm
+
+
+def ssd_bound(card: str, *, B: int, S: int, H: int, P: int, N: int, chunk: int,
+              itemsize: int) -> dict:
+    """Least time for one SSD scan: x and y (B,S,H,P), dA (B,S,H) f32, B and C
+    (B,S,N) once per batch row, the f32 state read and written once, over the
+    memory rate; vs the flops of the visible (i, j <= i) pairs of each chunk
+    (2N for C·B, 2P for the product with x) plus C·state and the state update
+    (2·P·N per row each), over the peak rate for the inputs' type."""
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * itemsize + B * S * H * 4 + 2 * B * H * P * N * 4
+    flops = 0
+    for c0 in range(0, S, chunk):
+        rows = min(chunk, S - c0)
+        flops += rows * (rows + 1) // 2 * 2 * (N + P) + 4 * rows * P * N
+    flops *= B * H
+    bw, _ = card_rate(_BANDWIDTH, card)
+    peak, _ = card_rate(_BF16_FLOPS if itemsize == 2 else _F32_FLOPS, card)
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "bandwidth_Bps": bw, "peak_flops": peak}
+
+
+def check_ssd(dev, gen) -> tuple[list, float]:
+    """ssd_scan against its plain version: the reference's four sweeps (f32,
+    its dA, its 1e-4); then, with the model's dA, the serving shape in bf16
+    (2e-2, atol scaled by min(1, max|want|)), a ragged S = 1000 and a nonzero
+    initial state (f32, 1e-4), and each final state at 1e-4 relative. With
+    the model's dA the running sum of dA reaches ~-5000 in a chunk, where f32
+    prefix sums (the reference's arithmetic, and the plain version's in f32)
+    lose ~5e-4 in each decay's exponent; so there the plain version runs in
+    f64 on the same inputs, and the plain f32 version's own distance from it
+    is recorded beside the kernel's. Raises on a miss."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_scan_ref, ssd_scan_sequential
+
+    checks, max_err = [], 0.0
+
+    def hold(got, want, rtol, atol, note):
+        nonlocal max_err
+        err = float((got.double() - want.double()).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got.double(), want.double(),
+                                                                rtol=rtol, atol=atol)
+        checks.append({"kernel": "ssd_scan", "case": note, "max_abs_err": err, "rtol": rtol,
+                       "atol": atol, "ok": ok})
+        if not note.startswith("final state"):
+            max_err = max(max_err, err)
+        if not ok:
+            raise AssertionError(f"ssd_scan {note}: max abs err {err} over rtol {rtol} / atol {atol}")
+
+    for BH, S, P, N, chunk in SSD_SWEEPS:
+        x = torch.randn(BH, S, P, device=dev, generator=gen) * 0.5
+        dA = -torch.nn.functional.softplus(torch.randn(BH, S, device=dev, generator=gen))
+        Bm, Cm = (torch.randn(BH, S, N, device=dev, generator=gen) * 0.5 for _ in range(2))
+        got = sk.ssd_scan(x, dA, Bm, Cm, chunk=chunk)
+        note = f"BH={BH} S={S} P={P} N={N} chunk={chunk} f32"
+        hold(got, ssd_scan_ref(x, dA, Bm, Cm, chunk=chunk), SSD_TOL, SSD_TOL, note)
+        hold(got, ssd_scan_sequential(x, dA, Bm, Cm), 1e-3, 1e-3, note + " vs sequential")
+    cases = [  # B, S, H, P, N, chunk, dtype, initial state
+        (SSM_B, SSM_S, 24, 64, 128, 256, torch.bfloat16, False),
+        (2, 1000, 24, 64, 128, 256, torch.float32, False),
+        (2, 1000, 4, 64, 128, 256, torch.float32, True),
+        (1, 333, 3, 128, 64, 128, torch.float32, True)]
+    for B, S, H, P, N, chunk, dtype, with_init in cases:
+        x, dA, Bm, Cm = ssd_case(dev, gen, B, S, H, P, N, dtype)
+        init = (torch.randn(B, H, P, N, device=dev, generator=gen) * 0.3 if with_init
+                else torch.zeros(B, H, P, N, device=dev))
+        wide = (B, S, H, N)
+        plain = lambda *t: ssd_chunked(t[0], t[1], t[2][:, :, None].expand(wide),  # noqa: E731
+                                       t[3][:, :, None].expand(wide), chunk, initial_state=t[4])
+        want_y, want_state = plain(*(t.double() for t in (x, dA, Bm, Cm, init)))
+        f32_y, f32_state = plain(x, dA, Bm, Cm, init)
+        state = init.clone()
+        got_y, got_state = sk.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=state, state_out=state)
+        note = (f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} {str(dtype)[6:]}, B/C shared"
+                + (", initial state" if with_init else "") + ", vs the plain version in f64")
+        if dtype == torch.bfloat16:
+            tol = ATTN_TOL[dtype]
+            hold(got_y, want_y, tol, tol * min(1.0, float(want_y.abs().max())), note)
+        else:
+            hold(got_y, want_y, SSD_TOL, SSD_TOL, note)
+        checks[-1]["plain_f32_max_abs_err"] = float((f32_y.double() - want_y).abs().max())
+        hold(got_state, want_state, SSD_TOL, SSD_TOL * float(want_state.abs().max()),
+             "final state, " + note)
+        checks[-1]["plain_f32_max_abs_err"] = float((f32_state.double() - want_state).abs().max())
+        del x, dA, Bm, Cm, want_y, got_y, f32_y
+    torch.cuda.synchronize()
+    return checks, max_err
+
+
+def time_ssd(dev, gen, card) -> dict:
+    """Median CUDA-event times of ssd_scan and its plain version at the Mamba2
+    serving prefill's shape (bf16, B/C shared, the state read from and written
+    into a cache), beside the bound. No single PyTorch call computes the scan."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    B, S, H, P, N, chunk = SSM_B, SSM_S, 24, 64, 128, 256
+    x, dA, Bm, Cm = ssd_case(dev, gen, B, S, H, P, N, torch.bfloat16)
+    state = torch.zeros(B, H, P, N, device=dev)
+    wide = (B, S, H, N)
+    return {
+        "name": "ssd_scan", "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16, "
+                                     "B/C shared by the heads, state in and out",
+        "kernel_ms": time_ms(lambda: sk.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=state,
+                                            state_out=state)),
+        "plain_ms": time_ms(lambda: ssd_chunked(x, dA, Bm[:, :, None].expand(wide),
+                                                Cm[:, :, None].expand(wide), chunk,
+                                                initial_state=state)),
+        "library_ms": None, "library": "none (no single PyTorch call computes the scan)",
+        **ssd_bound(card, B=B, S=S, H=H, P=P, N=N, chunk=chunk, itemsize=2)}
+
+
+def serving_consistency(dev, arch: str, batch: int, prompt: int, new_tokens: int,
+                        prefill_kernel, logits_shape: tuple[int, int]) -> dict:
+    """``arch`` at full width in f32, cut to CONSIST_LAYERS layers: the
+    bulk-prefill path (``serve_batch``, which launches ``prefill_kernel``
+    once per layer) and the decode-only path (``serve_batch_loop``, which never
+    launches it) give the same greedy tokens, and the prefill's logits on the
+    card (over the first ``logits_shape`` prompt tokens) agree with the plain
+    versions' on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.serve import serve_batch, serve_batch_loop
     from repro_torch.models import build_model
 
-    cfg = get_config(SERVE_ARCH).replace(dtype="float32", n_layers=CONSIST_LAYERS)
+    cfg = get_config(arch).replace(dtype="float32", n_layers=CONSIST_LAYERS)
     model = build_model(cfg)
     params = model.init(1, device=dev)
-    prompts = torch.randint(0, cfg.vocab_size, (CONSIST_B, CONSIST_S),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=torch.Generator().manual_seed(1), dtype=torch.int32)
-    fast = serve_batch(cfg, params, prompts, new_tokens=CONSIST_NEW).cpu()
-    slow = serve_batch_loop(cfg, params, prompts, new_tokens=CONSIST_NEW).cpu()
+    (name, launches), = prefill_kernel.LAUNCHES.items()
+    fast = serve_batch(cfg, params, prompts, new_tokens=new_tokens).cpu()
+    prefill_launches = prefill_kernel.LAUNCHES[name] - launches
+    slow = serve_batch_loop(cfg, params, prompts, new_tokens=new_tokens).cpu()
+    if prefill_launches != cfg.n_layers or prefill_kernel.LAUNCHES[name] != launches + cfg.n_layers:
+        raise AssertionError(f"{name}: {prefill_launches} launches in serve_batch (want "
+                             f"{cfg.n_layers}), or launches in serve_batch_loop")
     if not torch.equal(fast, slow):
         raise AssertionError(f"serve_batch != serve_batch_loop on the card:\n{fast}\n{slow}")
     # the prefill's last-position logits, kernels on the card vs plain on the CPU
-    short = prompts[:2, :64]
+    B, S = logits_shape
+    short = prompts[:B, :S]
     with torch.inference_mode():
-        got, _ = model.prefill(params, short.to(dev), model.init_cache(2, 64, device=dev))
+        got, _ = model.prefill(params, short.to(dev), model.init_cache(B, S, device=dev))
         cpu_params = tree_map(lambda t: t.cpu(), params)
-        want, _ = model.prefill(cpu_params, short, model.init_cache(2, 64, device="cpu"))
+        want, _ = model.prefill(cpu_params, short, model.init_cache(B, S, device="cpu"))
     err = float((got.cpu() - want).abs().max())
     if not (torch.isfinite(got).all() and torch.allclose(got.cpu(), want, rtol=1e-3, atol=1e-3)):
         raise AssertionError(f"prefill logits, card vs CPU: max abs err {err}")
     return {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
-            "batch": CONSIST_B, "prompt": CONSIST_S, "new_tokens": CONSIST_NEW,
-            "tokens_equal": True, "prefill_logits_vs_cpu_max_abs_err": err,
+            "batch": batch, "prompt": prompt, "new_tokens": new_tokens,
+            "tokens_equal": True, "prefill_kernel": name, "prefill_launches": prefill_launches,
+            "logits_shape": list(logits_shape), "prefill_logits_vs_cpu_max_abs_err": err,
             "logits_tol": 1e-3}
 
 
@@ -294,10 +440,15 @@ def host_memory(n_params: int) -> dict:
     return {"host_mem_available_bytes": avail, "host_mem_floor_bytes": need}
 
 
-def serving(dev) -> tuple[dict, dict]:
-    """The serving tier end to end, at full width in bf16: publish → deploy →
-    batched prefill + greedy decode → a second push hot-swapped in under
-    traffic → a batch on the new weights. Returns (phase record, launches)."""
+def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
+            kernels: dict) -> tuple[dict, dict]:
+    """The serving tier end to end, ``arch`` at full width in bf16: publish →
+    deploy → batches of ``batch`` prompts x ``prompt`` tokens, bulk prefill +
+    ``new_tokens`` greedy tokens → a second push hot-swapped in under traffic
+    → a batch on the new weights. ``kernels`` maps each kernel of the path to
+    its wrapper module, whose launch count is set to 0 just before the traffic
+    and read just after. Returns (phase record, launches)."""
+    import gc
     import resource
     import threading
 
@@ -307,16 +458,14 @@ def serving(dev) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.core.serialize import NodeUpdate
     from repro_torch.core.tree import LeafSpec, tree_map
-    from repro_torch.kernels.decode_attention import kernel as dk
-    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build_model
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     n_params = LeafSpec.of(model.abstract()).num_params
     host = host_memory(n_params)
-    uri = "memory://chip-smoke-serving"
+    uri = f"memory://chip-smoke-serving-{arch}"
 
     def publish(params: dict, counter: int) -> dict:
         t0 = time.perf_counter()
@@ -330,19 +479,22 @@ def serving(dev) -> tuple[dict, dict]:
     first_params = model.init(0, device=dev)
     second_params = tree_map(torch.neg, first_params)
     pushes = [publish(first_params, 0)]
+    gc.collect()  # an earlier phase's node (a reference cycle through its thread)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    mem_at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     node = serve(uri, cfg, poll_interval=0.05, wait=900.0, node_id="server-0")
     try:
         if not node.stats()["deployed"]:
             raise AssertionError("the serving node deployed nothing within 900 s")
         first_deploy_s = time.perf_counter() - t0
-        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt),
                                                     dtype=np.int32)
         node.generate(prompts[:, :16], new_tokens=2)  # warm-up: allocator, cuBLAS handles
-        fk.reset_launches()
-        dk.reset_launches()
-        first, meta = node.generate(prompts, new_tokens=SERVE_NEW)
+        for wrapper in kernels.values():
+            wrapper.reset_launches()
+        first, meta = node.generate(prompts, new_tokens=new_tokens)
         batches = [(first, meta)]
         if meta["counter"] != 0:
             raise AssertionError(f"first batch served counter {meta['counter']}")
@@ -360,7 +512,7 @@ def serving(dev) -> tuple[dict, dict]:
         pusher.start()
         deadline = None
         while node.stats()["counter"] != 1:
-            batches.append(node.generate(prompts, new_tokens=SERVE_NEW))
+            batches.append(node.generate(prompts, new_tokens=new_tokens))
             if errors:
                 raise errors[0]
             if not pusher.is_alive():
@@ -368,11 +520,10 @@ def serving(dev) -> tuple[dict, dict]:
                 if time.perf_counter() > deadline:
                     raise AssertionError("the second push was never deployed")
         pusher.join()
-        last, last_meta = node.generate(prompts, new_tokens=SERVE_NEW)
+        last, last_meta = node.generate(prompts, new_tokens=new_tokens)
         batches.append((last, last_meta))
         torch.cuda.synchronize()
-        launches = {"flash_attention": fk.LAUNCHES["flash_attention"],
-                    "decode_attention": dk.LAUNCHES["decode_attention"]}
+        launches = {name: wrapper.LAUNCHES[name] for name, wrapper in kernels.items()}
         stats = node.stats()
         swap_log = node.swap_log()
         # where a batch's time goes: prefill alone, then prefill + 16 tokens
@@ -385,7 +536,7 @@ def serving(dev) -> tuple[dict, dict]:
     # the deployed weights serve what the pushed ones serve directly, before
     # and after the swap (same kernels, same card: equal tokens)
     for out, params, name in ((first, first_params, "first"), (last, second_params, "second")):
-        want = serve_batch(cfg, params, prompts, new_tokens=SERVE_NEW).cpu().numpy()
+        want = serve_batch(cfg, params, prompts, new_tokens=new_tokens).cpu().numpy()
         if not np.array_equal(out, want):
             raise AssertionError(f"the node's tokens on the {name} weights differ from "
                                  "serve_batch's on the pushed weights")
@@ -398,7 +549,7 @@ def serving(dev) -> tuple[dict, dict]:
     if last_meta["counter"] != 1 or np.array_equal(last, first):
         raise AssertionError(f"the batch after the swap ran counter {last_meta['counter']} "
                              "or gave the first weights' tokens")
-    if last.shape != (SERVE_B, SERVE_NEW) or not ((last >= 0) & (last < cfg.vocab_size)).all():
+    if last.shape != (batch, new_tokens) or not ((last >= 0) & (last < cfg.vocab_size)).all():
         raise AssertionError(f"bad tokens: shape {last.shape}")
 
     # per-token decode latency: steady (no update in flight), while the second
@@ -414,12 +565,12 @@ def serving(dev) -> tuple[dict, dict]:
             else:
                 steady.append((b - a) * 1e3)
     pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
-    n_tokens = SERVE_B * SERVE_NEW * len(batches)
+    n_tokens = batch * new_tokens * len(batches)
     decode_s = sum(b - a for _, m in batches for a, b in m["decode_spans"])
     record = {
         "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
-        "params": n_params, "batch": SERVE_B, "prompt": SERVE_S,
-        "new_tokens": SERVE_NEW, "batches": len(batches),
+        "params": n_params, "batch": batch, "prompt": prompt,
+        "new_tokens": new_tokens, "batches": len(batches),
         "mid_swap_batches_on_counter_0": sum(1 for c in kept if c == 0) - 1,
         "push_s": [p["push_s"] for p in pushes], "first_deploy_s": first_deploy_s,
         "prefill_ms_first": batches[0][1]["prefill_s"] * 1e3,
@@ -429,10 +580,11 @@ def serving(dev) -> tuple[dict, dict]:
         "decode_ms_p99_during_push_pull": pct(during_update, 99),
         "decode_ms_p50_during_swap": pct(during, 50), "decode_ms_p99_during_swap": pct(during, 99),
         "decode_tokens_during_swap": len(during),
-        "decode_tokens_per_s": SERVE_B * len(steady) / (sum(steady) / 1e3) if steady else None,
+        "decode_tokens_per_s": batch * len(steady) / (sum(steady) / 1e3) if steady else None,
         "tokens_per_s": stats["tokens_per_sec"], "tokens": n_tokens, "decode_s": decode_s,
         "swap_ms_p50": stats["swap_ms_p50"], "swap_ms_max": stats["swap_ms_max"],
-        "swaps": stats["swaps"], "peak_device_memory_bytes": peak_mem, **host,
+        "swaps": stats["swaps"], "peak_device_memory_bytes": peak_mem,
+        "device_memory_at_start_bytes": mem_at_start, **host,
         "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         "launches": launches, "profile": profiled}
     return record, launches
@@ -482,6 +634,9 @@ def profile_generate(node, prompts, new_tokens: int) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        sys.exit(f"chip_smoke: the port's sources (src/repro_torch) are not beside {__file__}; "
+                 "run it from a checkout of the repository")
     from repro_torch.kernels import _build
     from repro_torch.kernels.fed_agg import kernel as fk
     from repro_torch.kernels.fed_agg.ref import fed_agg_ref, fed_opt_ref
@@ -574,7 +729,14 @@ def main() -> None:
     timings += attn_timings
     emit("attn_kernels", card=card, nvidia_smi=smi, timings=attn_timings)
 
-    # -- 7. federation: the port's first main path, end to end -------------------
+    # -- 7. ssd_kernel_check / 8. ssd_kernels --------------------------------------
+    ssd_checks, max_err["ssd_scan"] = check_ssd(dev, gen)
+    emit("ssd_kernel_check", checks=ssd_checks)
+    ssd_timing = time_ssd(dev, gen, card)
+    timings.append(ssd_timing)
+    emit("ssd_kernels", card=card, nvidia_smi=smi, timings=[ssd_timing])
+
+    # -- 9. federation: the port's first main path, end to end -------------------
     from repro_torch.api import connect
     from repro_torch.core import AsyncFederatedNode, Callback, FederatedCallback, run_threaded
     from repro_torch.core.partition import partition_dataset
@@ -665,22 +827,44 @@ def main() -> None:
     emit("federation", model="ResNet-18 GN", params=n_params, clients=per_client,
          wall_s=wall, launches=launches, pulled_fed_agg_max_abs_err=err)
 
-    # -- 8. serving_consistency / 9. serving: the port's second main path -------
-    emit("serving_consistency", **serving_consistency(dev))
-    record, serving_launches = serving(dev)
+    # -- 10. serving_consistency / 11. serving: the port's second main path -----
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    emit("serving_consistency", **serving_consistency(
+        dev, SERVE_ARCH, CONSIST_B, CONSIST_S, CONSIST_NEW, flash_kernel, (2, 64)))
+    record, serving_launches = serving(dev, SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW,
+                                       {"flash_attention": flash_kernel,
+                                        "decode_attention": dec_kernel})
     emit("serving", **record)
     launches.update(serving_launches)
+
+    # -- 12. serving_ssm_consistency / 13. serving_ssm: Mamba2, the reference's
+    #        serving default, through the same entry points -------------------------
+    emit("serving_ssm_consistency", **serving_consistency(
+        dev, SSM_ARCH, SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW, ssd_kernel,
+        (SSM_CONSIST_B, SSM_CONSIST_S)))
+    record, ssm_launches = serving(dev, SSM_ARCH, SSM_B, SSM_S, SSM_NEW, {"ssd_scan": ssd_kernel})
+    if ssm_launches["ssd_scan"] != record["n_layers"] * record["batches"]:
+        raise AssertionError(f"ssd_scan launched {ssm_launches['ssd_scan']} times for "
+                             f"{record['batches']} prefills of {record['n_layers']} layers")
+    emit("serving_ssm", **record)
+    launches.update(ssm_launches)
 
     # -- summary ----------------------------------------------------------------
     main_shape = {t["name"]: t for t in timings
                   if t.get("K") == 4 or t.get("shape", "").startswith(f"B={SERVE_B} S={SERVE_S}")
-                  or t.get("shape", "").startswith(f"B={SERVE_B} C={SERVE_S + SERVE_NEW}")}
+                  or t.get("shape", "").startswith(f"B={SERVE_B} C={SERVE_S + SERVE_NEW}")
+                  or t["name"] == "ssd_scan"}
     sources = {"fed_agg": ("src/repro_torch/csrc/fed_agg.cu", "src/repro/kernels/fed_agg/kernel.py:62"),
                "fed_opt": ("src/repro_torch/csrc/fed_agg.cu", "src/repro/kernels/fed_agg/kernel.py:144"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:77"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention/kernel.py:61")}
+                                    "src/repro/kernels/decode_attention/kernel.py:61"),
+               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan/kernel.py:64")}
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],

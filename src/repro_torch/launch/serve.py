@@ -1,7 +1,7 @@
 """Batched serving: prefill a batch of prompts, then decode greedily —
 the port of ``repro.launch.serve``.
 
-    python -m repro_torch.launch.serve --arch granite-3-2b --reduced --batch 4 --new-tokens 16
+    python -m repro_torch.launch.serve --arch mamba2-130m --reduced --batch 4 --new-tokens 16
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -48,8 +48,8 @@ def serve_batch(cfg, params, prompts, *, new_tokens: int) -> torch.Tensor:
 def serve_batch_loop(cfg, params, prompts, *, new_tokens: int) -> torch.Tensor:
     """Token-at-a-time reference: the prompt is pushed through ``serve_step``
     one position at a time. The equivalence oracle for ``serve_batch``: on
-    the card it runs the decode kernel alone, where ``serve_batch`` prefills
-    through the flash kernel."""
+    the card it runs the decode path alone, where ``serve_batch`` prefills
+    through the flash_attention (GQA) or ssd_scan (Mamba2) kernel."""
     model = build_model(cfg)
     prompts = _prompts_on(params, prompts)
     B, S = prompts.shape
@@ -67,7 +67,7 @@ def serve_batch_loop(cfg, params, prompts, *, new_tokens: int) -> torch.Tensor:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly — the port of ``repro.models.transformer`` for
-``attn`` blocks (pre-norm GQA attention + pre-norm MLP).
+``attn`` blocks (pre-norm GQA attention + pre-norm MLP) and ``ssm`` blocks
+(pre-norm Mamba2 SSD block, no MLP).
 
 The parameter tree is the reference's, leaf for leaf: ``embed/table``,
 ``blocks/u<u>_<kind>/...`` with a leading group axis over the stacked layers,
@@ -8,7 +9,7 @@ embeddings are untied. So ``LeafSpec.key`` and the wire match, and a JAX
 node's weights deploy in the port. Where the reference scans over the group
 axis, the port loops in Python over the stacked leaves' slices (views).
 
-Block kinds other than ``attn`` (``moe_attn``, ``ssm``, ``rglru``), MLA,
+Block kinds other than ``attn`` and ``ssm`` (``moe_attn``, ``rglru``), MLA,
 encoder-decoders and VLM prefixes are not ported yet (ROADMAP Queue 1,
 item 17): building such a model raises ``NotImplementedError``.
 """
@@ -20,6 +21,7 @@ from repro_torch.core.tree import tree_flatten_with_path, tree_unflatten
 from repro_torch.kernels import resolve_device
 
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .common import (
     ModelConfig,
     embedding_apply,
@@ -31,7 +33,7 @@ from .common import (
     unembed_apply,
 )
 
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "ssm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -48,40 +50,65 @@ def check_supported(cfg: ModelConfig) -> None:
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {what} are not ported to PyTorch yet (ROADMAP Queue 1, item 17); "
-            f"the port builds {list(PORTED_KINDS)} blocks with GQA attention")
+            f"the port builds {list(PORTED_KINDS)} blocks (attention: GQA)")
 
 
-def _init_block(gen, cfg: ModelConfig, lead: tuple = ()) -> dict:
+def _init_block(gen, cfg: ModelConfig, kind: str, lead: tuple = ()) -> dict:
     dt = cfg.torch_dtype
-    return {
-        "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
-        "attn": attn_mod.init_attention(gen, cfg, lead=lead),
-        "norm2": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
-        "mlp": mlp_init(gen, cfg, lead=lead),
-    }
+    if kind == "attn":
+        return {
+            "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "attn": attn_mod.init_attention(gen, cfg, lead=lead),
+            "norm2": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "mlp": mlp_init(gen, cfg, lead=lead),
+        }
+    if kind == "ssm":
+        return {
+            "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "ssm": ssm_mod.init_mamba2(gen, cfg, lead=lead),
+        }
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
-def _apply_block_full(p, cfg: ModelConfig, x, *, window_override=None):
+def _apply_block_full(p, cfg: ModelConfig, kind: str, x, *, window_override=None):
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        return x + ssm_mod.mamba2_full(p["ssm"], cfg, h)
     x = x + attn_mod.attn_full(p["attn"], cfg, h, window=window_override)
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h, cfg.activation)
 
 
-def _apply_block_decode(p, cfg: ModelConfig, x, cache, pos, *, window_override=None):
+def _apply_block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos, *, window_override=None):
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        out, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
+        return x + out, cache
     a, cache = attn_mod.attn_decode(p["attn"], cfg, h, cache, pos, window=window_override)
     x = x + a
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h, cfg.activation), cache
 
 
-def _apply_block_prefill(p, cfg: ModelConfig, x, cache, *, window_override=None):
+def _apply_block_prefill(p, cfg: ModelConfig, kind: str, x, cache, *, window_override=None):
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        out, cache = ssm_mod.mamba2_prefill(p["ssm"], cfg, h, cache)
+        return x + out, cache
     a, cache = attn_mod.attn_prefill(p["attn"], cfg, h, cache, window=window_override)
     x = x + a
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h, cfg.activation), cache
+
+
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
+                      device, lead: tuple = ()) -> dict:
+    """An ``attn`` block's ring KV cache, or an ``ssm`` block's conv window
+    (model dtype) and f32 state."""
+    if kind == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, device=device, lead=lead)
+    return attn_mod.init_attn_cache(cfg, batch, _cache_capacity(cfg, capacity), device=device,
+                                    lead=lead)
 
 
 def _cache_capacity(cfg: ModelConfig, capacity: int) -> int:
@@ -102,10 +129,10 @@ class DecoderLM:
     def _build(self, gen) -> dict:
         cfg = self.cfg
         params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model, cfg.torch_dtype)}
-        params["blocks"] = {f"u{u}_{kind}": _init_block(gen, cfg, lead=(self.n_groups,))
+        params["blocks"] = {f"u{u}_{kind}": _init_block(gen, cfg, kind, lead=(self.n_groups,))
                             for u, kind in enumerate(self.pattern)}
         if self.tail:
-            params["tail"] = {f"t{i}_{kind}": _init_block(gen, cfg)
+            params["tail"] = {f"t{i}_{kind}": _init_block(gen, cfg, kind)
                               for i, kind in enumerate(self.tail)}
         params["final_norm"] = rmsnorm_init(gen, cfg.d_model, cfg.torch_dtype)
         if not cfg.tie_embeddings:
@@ -138,7 +165,7 @@ class DecoderLM:
                 for g in range(self.n_groups)]
 
     def _layers(self, params: dict, cache: dict | None = None):
-        """(block params, block cache) per layer, in order. Stacked groups
+        """(kind, block params, block cache) per layer, in order. Stacked groups
         give views into their leaves' slices, so in-place cache writes land
         in the stacked cache."""
         p_views = self._per_group(params["blocks"])
@@ -146,10 +173,10 @@ class DecoderLM:
         for g in range(self.n_groups):
             for u, kind in enumerate(self.pattern):
                 key = f"u{u}_{kind}"
-                yield p_views[g][key], None if cache is None else c_views[g][key]
+                yield kind, p_views[g][key], None if cache is None else c_views[g][key]
         for i, kind in enumerate(self.tail):
             key = f"t{i}_{kind}"
-            yield params["tail"][key], None if cache is None else cache["tail"][key]
+            yield kind, params["tail"][key], None if cache is None else cache["tail"][key]
 
     def _embed(self, params, tokens, extra_embeds=None):
         if extra_embeds is not None:
@@ -168,8 +195,8 @@ class DecoderLM:
     def apply(self, params, tokens, extra_embeds=None, *, window_override=None):
         """→ (logits (B,S,padded_vocab), aux_loss)."""
         x = self._embed(params, tokens, extra_embeds)
-        for p, _ in self._layers(params):
-            x = _apply_block_full(p, self.cfg, x, window_override=window_override)
+        for kind, p, _ in self._layers(params):
+            x = _apply_block_full(p, self.cfg, kind, x, window_override=window_override)
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     # -- decode -------------------------------------------------------------------
@@ -178,13 +205,12 @@ class DecoderLM:
         cfg = self.cfg if window_override is None else self.cfg.replace(
             sliding_window=window_override)
         dev = resolve_device(device)
-        cap = _cache_capacity(cfg, capacity)
-        caches = {f"u{u}_{kind}": attn_mod.init_attn_cache(cfg, batch, cap, device=dev,
-                                                           lead=(self.n_groups,))
+        caches = {f"u{u}_{kind}": _init_block_cache(cfg, kind, batch, capacity, device=dev,
+                                                    lead=(self.n_groups,))
                   for u, kind in enumerate(self.pattern)}
         if self.tail:
-            caches["tail"] = {f"t{i}_{kind}": attn_mod.init_attn_cache(cfg, batch, cap,
-                                                                       device=dev)
+            caches["tail"] = {f"t{i}_{kind}": _init_block_cache(cfg, kind, batch, capacity,
+                                                                device=dev)
                               for i, kind in enumerate(self.tail)}
         return caches
 
@@ -192,15 +218,17 @@ class DecoderLM:
         """token: (B,) int; pos: the position (host int) → (logits
         (B,padded_vocab), cache). The cache is updated in place."""
         x = self._embed(params, token[:, None])
-        for p, c in self._layers(params, cache):
-            x, _ = _apply_block_decode(p, self.cfg, x, c, pos, window_override=window_override)
+        for kind, p, c in self._layers(params, cache):
+            x, _ = _apply_block_decode(p, self.cfg, kind, x, c, pos,
+                                       window_override=window_override)
         return self._logits(params, x[:, 0]), cache
 
     def prefill(self, params, tokens, cache, extra_embeds=None, *, window_override=None):
         """Bulk prefill: one full-sequence pass that fills a *fresh* decode
         cache (``init_cache``) in place and returns the last position's
-        logits. Positions start at 0. → (logits (B, padded_vocab), cache)."""
+        logits. Positions start at 0 (an ``ssm`` block seeds its scan from the
+        cache's state, zeros when fresh). → (logits (B, padded_vocab), cache)."""
         x = self._embed(params, tokens, extra_embeds)
-        for p, c in self._layers(params, cache):
-            x, _ = _apply_block_prefill(p, self.cfg, x, c, window_override=window_override)
+        for kind, p, c in self._layers(params, cache):
+            x, _ = _apply_block_prefill(p, self.cfg, kind, x, c, window_override=window_override)
         return self._logits(params, x[:, -1]), cache

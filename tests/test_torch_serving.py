@@ -38,7 +38,7 @@ from repro_torch.serving import ServingNode, StoreWatcher
 
 from _torch_parity import np_params
 
-PORTED = ["granite-3-2b", "pythia-14m"]
+PORTED = ["granite-3-2b", "pythia-14m", "mamba2-130m"]
 
 
 def _push(store, params, *, counter, node_id="trainer-0"):
@@ -86,7 +86,7 @@ def test_leafspec_key_matches_reference_at_full_size(arch):
     assert port.key == ref.key and port.num_params == ref.num_params
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b", "minicpm3-4b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "minicpm3-4b",
                                   "llama4-scout-17b-a16e", "grok-1-314b", "seamless-m4t-medium"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
