@@ -31,7 +31,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -70,13 +69,26 @@ SSD_TOL = 1e-4
 FLASH_CHECK = [  # B, S, KV, G, hd, window
     (2, 256, 2, 2, 64, 0), (1, 256, 1, 4, 64, 128), (2, 512, 4, 1, 128, 0),
     (1, 128, 2, 2, 256, 64), (1, 256, 2, 3, 64, 0),
-    (SERVE_B, SERVE_S, 8, 4, 64, 0), (2, 200, 8, 4, 64, 0), (1, 333, 2, 6, 128, 100)]
+    (SERVE_B, SERVE_S, 8, 4, 64, 0), (2, 200, 8, 4, 64, 0), (1, 333, 2, 6, 128, 100),
+    (2, 200, 4, 2, 32, 0),      # hd 32, ragged S
+    (1, 256, 8, 5, 128, 0),     # qwen3-14b's group: KV 8, G 5, hd 128
+    (1, 333, 16, 1, 256, 0),    # gemma-7b's: KV 16, G 1, hd 256, ragged S
+    (2, 200, 2, 16, 64, 50),    # G 16, windowed, ragged
+    (1, 96, 1, 64, 64, 0),      # the widest group: one position per q tile
+    (1, 64, 1, 32, 256, 16),    # the widest group at hd 256, windowed
+    (1, 1, 2, 4, 64, 0)]        # S = 1
 DECODE_CHECK = [  # B, KV, G, hd, C
     (2, 2, 4, 64, 1024), (1, 8, 1, 128, 512), (3, 1, 6, 64, 2048), (1, 2, 2, 256, 256),
-    (SERVE_B, 8, 4, 64, SERVE_S + SERVE_NEW), (SERVE_B, 8, 4, 64, 32768), (2, 8, 4, 64, 1000)]
+    (SERVE_B, 8, 4, 64, SERVE_S + SERVE_NEW), (SERVE_B, 8, 4, 64, 32768), (2, 8, 4, 64, 1000),
+    (2, 8, 4, 64, 1), (1, 2, 5, 128, 63), (2, 2, 16, 64, 1000), (1, 16, 1, 256, 576),
+    (2, 2, 4, 32, 100),
+    (1, 1, 16, 256, 576)]       # the largest block: G 16 at hd 256 (recurrentgemma-9b's group)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference's own
 # bf16's atol is also scaled by max|want| where that is below 1: at C = 32,768
 # the outputs are ~0.01, under a plain 2e-2, which zeros would meet.
+# Each port kernel's function name in a profiler trace.
+KERNEL_SYMBOLS = {"flash_attention": "flash_mma_kernel", "decode_attention": "decode_split_kernel",
+                  "ssd_scan": "ssd_scan_kernel"}
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s, and the f32 rate
 # outside the tensor cores (the fed kernels' arithmetic), flop/s.
@@ -97,20 +109,53 @@ def card_rate(table, name: str) -> tuple[float, str]:
     raise RuntimeError(f"no published rate for card {name!r}")
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median over ``reps`` calls, each between its own pair of CUDA events.
-    The calls are enqueued back to back, so the card does not sit idle
-    waiting for the host's next launch inside a timed interval."""
-    for _ in range(warmup):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
+L2_BYTES = 50 * 2**20  # H100's L2
+
+
+def time_ms(fn, arg_sets=((),), reps: int = 25, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls run back to back
+    between one pair of CUDA events, the elapsed time over ``reps``. A spin
+    on the stream (``torch.cuda._sleep``) is queued first and holds the device
+    until the host has enqueued every call, so the device never waits for the
+    host's next launch (Python checks, a ctypes call) inside the interval; if
+    the host was not done when the spin ended, the run is repeated with a
+    longer spin. The calls rotate through ``arg_sets`` (see ``cold_sets``).
+    The device holds a bounded queue of launches: a function of many small
+    ones (a plain version) takes a few ``reps``, or the host waits for room
+    in the queue and the spin never covers the enqueue."""
+    for i in range(warmup):
+        fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
-    return statistics.median(start.elapsed_time(end) for start, end in events)
+    t0 = time.perf_counter()
+    fn(*arg_sets[0])
+    host_s = time.perf_counter() - t0  # one call's enqueue (the device may still run it)
+    torch.cuda.synchronize()
+    spin_s = 2 * reps * host_s + 2e-3
+    for _ in range(4):
+        spin_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin_start.record()
+        torch.cuda._sleep(int(spin_s * 2.0e9))  # cycles; the SM clock is at most ~2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+        enqueue_s = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        if spin_start.elapsed_time(start) / 1e3 > enqueue_s:
+            return start.elapsed_time(end) / reps
+        spin_s *= 4
+    raise RuntimeError("the host never finished enqueueing within the spin: the call waits "
+                       "on the device, or its launches overflow the device's queue")
+
+
+def cold_sets(make, set_bytes: int) -> list:
+    """Copies of a call's inputs (``make()`` returns one tuple) enough to
+    cover twice the L2, so that rotating through them the call finds its
+    data cold, as a real caller whose data was not just written does (a
+    decode step reads each layer's cache once; an aggregation reads weights
+    written an epoch ago). One set where the inputs alone exceed that."""
+    return [make() for _ in range(max(1, -(-2 * L2_BYTES // set_bytes)))]
 
 
 def bound(name: str, k: int, n: int, card: str) -> dict:
@@ -171,55 +216,82 @@ def sdpa_inputs(q, k, v):
 
 def check_attention(dev, gen) -> tuple[list, dict]:
     """Each attention kernel against its plain version at the reference's
-    sweep shapes and the serving path's, f32 and bf16. Raises on a miss."""
+    sweep shapes, the serving path's and the reach of the redesigns (hd 32 to
+    256, G 1 to 64, ragged S and C, windows, a split of the cache whose slots
+    are all invalid, a ring with no valid slot), f32 and bf16; each call
+    launches its kernel once. Raises on a miss."""
     from repro_torch.kernels.decode_attention import kernel as dk
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref, split_bounds
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     checks, max_err = [], {"flash_attention": 0.0, "decode_attention": 0.0}
+    wrappers = {"flash_attention": fk, "decode_attention": dk}
 
-    def hold(name, got, want, dtype, note):
+    def hold(name, call, want, dtype, note):
+        before = wrappers[name].LAUNCHES[name]
+        got = call()
+        launches = wrappers[name].LAUNCHES[name] - before
         tol = atol = ATTN_TOL[dtype]
         if dtype == torch.bfloat16:
             atol = tol * min(1.0, float(want.float().abs().max()))
         err = float((got.float() - want.float()).abs().max())
-        ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(),
-                                                                rtol=tol, atol=atol)
+        ok = (launches == 1 and bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), rtol=tol, atol=atol))
         checks.append({"kernel": name, "shape": note, "dtype": str(dtype), "max_abs_err": err,
-                       "rtol": tol, "atol": atol, "ok": ok})
+                       "rtol": tol, "atol": atol, "launches": launches, "ok": ok})
         max_err[name] = max(max_err[name], err)
         if not ok:
-            raise AssertionError(f"{name} {note} {dtype}: max abs err {err} over "
-                                 f"rtol {tol} / atol {atol}")
+            raise AssertionError(f"{name} {note} {dtype}: {launches} launches, max abs err {err} "
+                                 f"over rtol {tol} / atol {atol}")
 
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, KV, G, hd, window in FLASH_CHECK:
             q = torch.randn(B, S, KV, G, hd, device=dev, generator=gen).to(dtype)
             k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen).to(dtype) for _ in range(2))
-            hold("flash_attention", fk.flash_attention(q, k, v, window=window),
+            hold("flash_attention", lambda: fk.flash_attention(q, k, v, window=window),
                  flash_attention_ref(q, k, v, window=window), dtype,
                  f"B={B} S={S} KV={KV} G={G} hd={hd} window={window}")
         for B, KV, G, hd, C in DECODE_CHECK:
             q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(dtype)
             k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(dtype) for _ in range(2))
             valid = torch.rand(C, device=dev, generator=gen) < 0.7
-            hold("decode_attention", dk.decode_attention(q, k, v, valid),
+            n_split = dk.split_count(B, KV, C, dk.sm_count(dev))
+            hold("decode_attention", lambda: dk.decode_attention(q, k, v, valid),
                  decode_attention_ref(q, k, v, valid), dtype,
-                 f"B={B} KV={KV} G={G} hd={hd} C={C}")
-    # a ring with no valid slot: both give the plain mean of v (all scores -1e30)
+                 f"B={B} KV={KV} G={G} hd={hd} C={C} n_split={n_split}")
+        # the serving shape with one split's slots all invalid, then with none valid
+        B, KV, G, hd, C = SERVE_B, 8, 4, 64, SERVE_S + SERVE_NEW
+        n_split = dk.split_count(B, KV, C, dk.sm_count(dev))
+        q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(dtype)
+        k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(dtype) for _ in range(2))
+        valid = torch.rand(C, device=dev, generator=gen) < 0.7
+        lo, hi = split_bounds(C, n_split)[1]
+        valid[lo:hi] = False
+        hold("decode_attention", lambda: dk.decode_attention(q, k, v, valid),
+             decode_attention_ref(q, k, v, valid), dtype,
+             f"B={B} KV={KV} G={G} hd={hd} C={C} n_split={n_split}, slots {lo}:{hi} all invalid")
+        none = torch.zeros(C, dtype=torch.bool, device=dev)
+        # both give the plain mean of v (all scores -1e30)
+        hold("decode_attention", lambda: dk.decode_attention(q, k, v, none),
+             decode_attention_ref(q, k, v, none), dtype,
+             f"B={B} KV={KV} G={G} hd={hd} C={C} n_split={n_split}, no valid slot")
     q = torch.randn(1, 2, 4, 64, device=dev, generator=gen)
     k, v = (torch.randn(1, 100, 2, 64, device=dev, generator=gen) for _ in range(2))
     none = torch.zeros(100, dtype=torch.bool, device=dev)
-    hold("decode_attention", dk.decode_attention(q, k, v, none),
+    hold("decode_attention", lambda: dk.decode_attention(q, k, v, none),
          decode_attention_ref(q, k, v, none), torch.float32, "B=1 KV=2 G=4 hd=64 C=100 no valid slot")
     torch.cuda.synchronize()
     return checks, max_err
 
 
 def time_attention(dev, gen, card) -> list:
-    """Median CUDA-event times of each attention kernel, its plain version and
-    SDPA, at the serving path's shapes (bf16), beside the bound."""
+    """Device times (``time_ms``) of each attention kernel, its plain version
+    and SDPA, at the serving path's shapes (bf16), beside the bound.
+    flash_attention's inputs are not rotated: in a prefill they were just
+    written by the projections, and at 42 MB they are about the L2's size.
+    decode_attention's are (``cold_sets``): a decode step reads each layer's
+    cache once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -234,6 +306,7 @@ def time_attention(dev, gen, card) -> list:
     qh, kh, vh, gqa = sdpa_inputs(q, k, v)
     timings.append({
         "name": "flash_attention", "shape": f"B={B} S={S} KV={KV} G={G} hd={hd} causal bf16",
+        "inputs": "one set (42 MB), not rotated",
         "kernel_ms": time_ms(lambda: fk.flash_attention(q, k, v)),
         "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, **gqa)),
@@ -242,21 +315,115 @@ def time_attention(dev, gen, card) -> list:
                      pairs=visible_pairs(S, 0))})
     del q, k, v, qh, kh, vh
     for C in (SERVE_S + SERVE_NEW, 32768):
-        q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(bf16)
-        k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
-        valid = torch.ones(C, dtype=torch.bool, device=dev)
-        qh, kh, vh, gqa = sdpa_inputs(q[:, None], k, v)
+        def make():
+            q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(bf16)
+            k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
+            valid = torch.ones(C, dtype=torch.bool, device=dev)
+            return (q, k, v, valid, *sdpa_inputs(q[:, None], k, v))
+        sets = cold_sets(make, 2 * B * C * KV * hd * 2)
+        valid = sets[0][3]
         timings.append({
             "name": "decode_attention", "shape": f"B={B} C={C} KV={KV} G={G} hd={hd} bf16, all slots valid",
-            "kernel_ms": time_ms(lambda: dk.decode_attention(q, k, v, valid)),
-            "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, valid)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=valid[None, None, None], **gqa)),
+            "inputs": f"{len(sets)} sets rotated (cold L2)",
+            "n_split": dk.split_count(B, KV, C, dk.sm_count(dev)),
+            "kernel_ms": time_ms(lambda q, k, v, valid, *_: dk.decode_attention(q, k, v, valid), sets),
+            "plain_ms": time_ms(lambda q, k, v, valid, *_: decode_attention_ref(q, k, v, valid), sets),
+            "library_ms": time_ms(lambda q, k, v, valid, qh, kh, vh, gqa: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=valid[None, None, None], **gqa), sets),
             "library": "F.scaled_dot_product_attention(attn_mask=valid)",
             **attn_bound("decode_attention", card, B=B, T=C, KV=KV, G=G, hd=hd, itemsize=2,
                          pairs=int(valid.sum()))})
-        del q, k, v, qh, kh, vh
+        timings[-1]["by_n_split"] = split_sweep(dk, sets, B, KV, G, hd)
+        del sets, valid
     return timings
+
+
+def split_sweep(dk, sets, B, KV, G, hd) -> list:
+    """decode_attention's device time for each n_split the kernel takes, with
+    the clusters of that size the card holds at once beside the B*KV the
+    grid needs: the evidence for ``split_count``'s rule."""
+    return [{"n_split": n, "kernel_ms": time_ms(
+                lambda q, k, v, valid, *_: dk._launch(q, k, v, valid, n_split=n), sets),
+             "clusters_resident": dk.cluster_capacity(hd, G, torch.bfloat16, n),
+             "clusters_needed": B * KV}
+            for n in range(1, dk.MAX_SPLIT + 1)]
+
+
+def attn_build_report(lib_paths: dict) -> dict:
+    """What the compiler made of the attention kernels, read from the built
+    libraries (``cuobjdump``, from the toolkit; a cached build reads the
+    same): each instance's registers, stack frame (where spills go) and
+    static shared memory (``-res-usage``), its local-memory stores (``STL``,
+    spill stores) and, for the flash library, its tensor-core instructions
+    (HMMA/HGMMA) in the SASS; beside them the dynamic shared memory of a
+    block. Raises if the bf16 flash kernel has no tensor-core instruction:
+    it is meant to run on the tensor cores."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    def demangle_short(mangled: str) -> str:
+        m = re.search(r"(flash_[a-z]+_kernel|decode_[a-z]+_kernel)I(.*?)EEv", mangled)
+        if not m:
+            return mangled
+        args = re.sub(r"Li(\d+)E", r"\1,", m.group(2)).replace("13__nv_bfloat16", "bf16,")
+        args = "f32," + args[1:] if args.startswith("f") else args
+        return f"{m.group(1)}<{args.rstrip(',')}>"
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+
+    def dump(flag: str, name: str) -> str:
+        return subprocess.run([str(cuobjdump), flag, str(lib_paths[name])],
+                              capture_output=True, text=True, check=True).stdout
+
+    report = {}
+    for name in ("flash_attention", "decode_attention"):
+        instances, current = {}, None
+        for line in dump("-res-usage", name).splitlines():
+            if line.strip().startswith("Function "):
+                current = demangle_short(line.strip()[len("Function "):].rstrip(":"))
+            elif current and "REG:" in line:
+                usage = dict(re.findall(r"(\w+):(\d+)", line))
+                instances[current] = {"registers": int(usage["REG"]),
+                                      "stack_bytes": int(usage["STACK"]),
+                                      "static_smem_bytes": int(usage["SHARED"]),
+                                      "local_bytes": int(usage["LOCAL"])}
+                current = None
+        counts, current = {}, None
+        for line in dump("-sass", name).splitlines():
+            if "Function : " in line:
+                current = demangle_short(line.split("Function : ")[1].strip())
+                counts[current] = {"hmma": 0, "stl": 0}
+            elif current and re.search(r"\bH(G)?MMA\b", line):
+                counts[current]["hmma"] += 1
+            elif current and re.search(r"\bSTL(\.\w+)*\b", line):
+                counts[current]["stl"] += 1
+        if not instances or set(instances) != set(counts):
+            raise AssertionError(f"{name}: cuobjdump's resource usage and SASS list different "
+                                 f"functions: {sorted(instances)} vs {sorted(counts)}")
+        for fn, c in counts.items():
+            instances[fn]["local_store_instructions"] = c["stl"]
+            if name == "flash_attention":
+                instances[fn]["sass_hmma_count"] = c["hmma"]
+        report[name] = {"instances": instances}
+    mma = {f: i["sass_hmma_count"] for f, i in report["flash_attention"]["instances"].items()
+           if f.startswith("flash_mma_kernel")}
+    if not mma or min(mma.values()) == 0:
+        raise AssertionError(f"the bf16 flash kernel has no tensor-core instruction: {mma}")
+    report["flash_attention"]["dynamic_smem_bytes"] = {
+        f"hd={hd} {str(dt)[6:]}": fk.smem_bytes(hd, dt)
+        for hd in fk.HEAD_DIMS for dt in fk.DTYPES}
+    n_split = dk.split_count(SERVE_B, 8, SERVE_S + SERVE_NEW, dk.sm_count(torch.device("cuda")))
+    report["decode_attention"].update(
+        serving_n_split=n_split,
+        dynamic_smem_bytes_serving=dk.smem_bytes(64, 4, torch.bfloat16, n_split),
+        dynamic_smem_bytes_largest=dk.smem_bytes(256, dk.MAX_G, torch.bfloat16, dk.MAX_SPLIT),
+        clusters_resident_serving=dk.cluster_capacity(64, 4, torch.bfloat16, n_split),
+        clusters_needed_serving=SERVE_B * 8)
+    return report
 
 
 def ssd_case(dev, gen, B, S, H, P, N, dtype):
@@ -359,9 +526,12 @@ def check_ssd(dev, gen) -> tuple[list, float]:
 
 
 def time_ssd(dev, gen, card) -> dict:
-    """Median CUDA-event times of ssd_scan and its plain version at the Mamba2
-    serving prefill's shape (bf16, B/C shared, the state read from and written
-    into a cache), beside the bound. No single PyTorch call computes the scan."""
+    """Device times (``time_ms``) of ssd_scan and its plain version at the
+    Mamba2 serving prefill's shape (bf16, B/C shared, the state read from and
+    written into a cache), beside the bound. The inputs (123 MB) exceed the
+    L2 alone, so one set. The plain version launches ~50 kernels a call, so
+    it is timed over 5 calls (see ``time_ms``). No single PyTorch call
+    computes the scan."""
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
@@ -376,8 +546,9 @@ def time_ssd(dev, gen, card) -> dict:
                                             state_out=state)),
         "plain_ms": time_ms(lambda: ssd_chunked(x, dA, Bm[:, :, None].expand(wide),
                                                 Cm[:, :, None].expand(wide), chunk,
-                                                initial_state=state)),
+                                                initial_state=state), reps=5),
         "library_ms": None, "library": "none (no single PyTorch call computes the scan)",
+        "inputs": "one set (123 MB, beyond the L2)",
         **ssd_bound(card, B=B, S=S, H=H, P=P, N=N, chunk=chunk, itemsize=2)}
 
 
@@ -620,15 +791,43 @@ def profile_generate(node, prompts, new_tokens: int) -> dict:
         raise AssertionError("torch.profiler traced no kernel on the card during generate")
     busy_us, end = 0.0, float("-inf")
     by_name: dict[str, float] = {}
+    ours = {name: [0, 0.0] for name in KERNEL_SYMBOLS}  # launches, device us
     for a, b, name in kernels:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a)
+        for kernel, symbol in KERNEL_SYMBOLS.items():
+            if symbol in name:
+                ours[kernel][0] += 1
+                ours[kernel][1] += b - a
     ops = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
               and e.name.startswith("aten::"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3, "kernels": len(kernels),
-            "aten_ops": ops, "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+            "aten_ops": ops, "top_kernels_ms": {k: v / 1e3 for k, v in top},
+            "port_kernels": {k: {"launches": n, "device_ms": us / 1e3,
+                                 "per_launch_ms": us / 1e3 / n}
+                             for k, (n, us) in ours.items() if n}}
+
+
+def timer_check(timings: list, profiles: dict) -> dict:
+    """``time_ms`` at a serving phase's shape against that phase's profile:
+    a kernel's device time summed over its launches in the trace, over their
+    count. The two should agree within ~15%."""
+    shapes = {"flash_attention": f"B={SERVE_B} S={SERVE_S}",
+              "decode_attention": f"B={SERVE_B} C={SERVE_S + SERVE_NEW}", "ssd_scan": ""}
+    out = {}
+    for name, profile in profiles.items():
+        t = next(t for t in timings if t["name"] == name and t["shape"].startswith(shapes[name]))
+        traced = profile.get("port_kernels", {}).get(name)
+        if traced is None:
+            out[name] = {"time_ms": t["kernel_ms"], "profile": "not measured"}
+            continue
+        out[name] = {"shape": t["shape"], "time_ms": t["kernel_ms"],
+                     "profile_per_launch_ms": traced["per_launch_ms"],
+                     "profile_launches": traced["launches"],
+                     "time_ms_over_profile": t["kernel_ms"] / traced["per_launch_ms"]}
+    return out
 
 
 def main() -> None:
@@ -702,23 +901,26 @@ def main() -> None:
     # -- 4. kernels: time beside bound, plain version and library call ----------
     for k, n in TIME_SHAPES:
         ld = -(-n // 32) * 32  # the strategies' stack layout
-        x = torch.randn(k, ld, device=dev, generator=gen)[:, :n]
-        w = torch.full((k,), 1.0 / k, device=dev)
-        p, m, v = (torch.randn(n, device=dev, generator=gen) for _ in range(3))
-        v = v.abs()
+
+        def make():
+            x = torch.randn(k, ld, device=dev, generator=gen)[:, :n]
+            w = torch.full((k,), 1.0 / k, device=dev)
+            p, m, v = (torch.randn(n, device=dev, generator=gen) for _ in range(3))
+            return x, w, p, m, v.abs()
+        sets = cold_sets(make, (k + 6) * n * 4)  # the inputs alone exceed the L2: one set
         timings.append({
-            "name": "fed_agg", "K": k, "N": n,
-            "kernel_ms": time_ms(lambda: fk.fed_agg(x, w)),
-            "plain_ms": time_ms(lambda: fed_agg_ref(x, w)),
-            "library_ms": time_ms(lambda: torch.mv(x.t(), w)),
+            "name": "fed_agg", "K": k, "N": n, "inputs": f"{len(sets)} set(s)",
+            "kernel_ms": time_ms(lambda x, w, *_: fk.fed_agg(x, w), sets),
+            "plain_ms": time_ms(lambda x, w, *_: fed_agg_ref(x, w), sets),
+            "library_ms": time_ms(lambda x, w, *_: torch.mv(x.t(), w), sets),
             **bound("fed_agg", k, n, card)})
         timings.append({
-            "name": "fed_opt", "variant": "adam", "K": k, "N": n,
-            "kernel_ms": time_ms(lambda: fk.fed_opt(x, w, p, m, v, variant="adam", **OPT_HP)),
-            "plain_ms": time_ms(lambda: fed_opt_ref(x, w, p, m, v, variant="adam", **OPT_HP)),
+            "name": "fed_opt", "variant": "adam", "K": k, "N": n, "inputs": f"{len(sets)} set(s)",
+            "kernel_ms": time_ms(lambda *a: fk.fed_opt(*a, variant="adam", **OPT_HP), sets),
+            "plain_ms": time_ms(lambda *a: fed_opt_ref(*a, variant="adam", **OPT_HP), sets),
             "library_ms": None,
             **bound("fed_opt", k, n, card)})
-        del x, p, m, v
+        del sets
     emit("kernels", card=card, nvidia_smi=smi, timings=timings)
 
     # -- 5. attn_kernel_check / 6. attn_kernels ----------------------------------
@@ -727,7 +929,8 @@ def main() -> None:
     emit("attn_kernel_check", checks=attn_checks)
     attn_timings = time_attention(dev, gen, card)
     timings += attn_timings
-    emit("attn_kernels", card=card, nvidia_smi=smi, timings=attn_timings)
+    emit("attn_kernels", card=card, nvidia_smi=smi, timings=attn_timings,
+         compiled=attn_build_report(libs))
 
     # -- 7. ssd_kernel_check / 8. ssd_kernels --------------------------------------
     ssd_checks, max_err["ssd_scan"] = check_ssd(dev, gen)
@@ -837,8 +1040,15 @@ def main() -> None:
     record, serving_launches = serving(dev, SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW,
                                        {"flash_attention": flash_kernel,
                                         "decode_attention": dec_kernel})
+    want = {"flash_attention": record["n_layers"] * record["batches"],
+            "decode_attention": record["n_layers"] * (SERVE_NEW - 1) * record["batches"]}
+    if serving_launches != want:
+        raise AssertionError(f"serving launched {serving_launches}, want one flash_attention per "
+                             f"layer per prefill and one decode_attention per layer per token: {want}")
     emit("serving", **record)
     launches.update(serving_launches)
+    profiles = {"flash_attention": record["profile"]["prefill"],
+                "decode_attention": record["profile"]["prefill_and_16_tokens"]}
 
     # -- 12. serving_ssm_consistency / 13. serving_ssm: Mamba2, the reference's
     #        serving default, through the same entry points -------------------------
@@ -851,6 +1061,8 @@ def main() -> None:
                              f"{record['batches']} prefills of {record['n_layers']} layers")
     emit("serving_ssm", **record)
     launches.update(ssm_launches)
+    profiles["ssd_scan"] = record["profile"]["prefill"]
+    emit("timer_check", **timer_check(timings, profiles))
 
     # -- summary ----------------------------------------------------------------
     main_shape = {t["name"]: t for t in timings

@@ -5,7 +5,9 @@ It replaces the Pallas TPU kernel ``flash_attention`` of
 ``src/repro/kernels/flash_attention/kernel.py``: causal GQA attention, with an
 optional sliding window, of q (B, S, KV, G, hd) over k/v (B, S, KV, hd), with
 an online softmax in f32. q, k, v and o are touched once; the work grows with
-S² (see the source for what bounds it).
+S² (see the source for what bounds it). bf16 takes the tensor-core kernel
+(``repro_flash_attention_mma``), f32 the scalar FMA kernel
+(``repro_flash_attention_fma``): one source, one launch per call either way.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the output
 with ``torch.empty``, launches on PyTorch's current stream without
@@ -23,12 +25,18 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P]
 _SIGNATURES = {
-    # q, k, v, out, B, S, KV, G, hd, window, dtype, scale, stream
-    "repro_flash_attention": (ctypes.c_int, [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                                             _I32, _I32, _F32, _P]),
+    # q, k, v, out, B, S, KV, G, hd, window, scale, stream
+    "repro_flash_attention_fma": (ctypes.c_int, _ARGS),
+    "repro_flash_attention_mma": (ctypes.c_int, _ARGS),
+    "repro_flash_attention_smem_bytes": (ctypes.c_int, [_I32, _I32]),  # hd, dtype
 }
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Which kernel a dtype takes: bf16 runs on the tensor cores (mma.sync); f32
+# keeps scalar FMA tiles, since bf16 or TF32 operands could not meet the
+# reference's f32 tolerance. Both are the kernel; neither is a fallback.
+ENTRY = {torch.float32: "repro_flash_attention_fma", torch.bfloat16: "repro_flash_attention_mma"}
+DTYPES = tuple(ENTRY)
 HEAD_DIMS = (32, 64, 128, 256)
 
 
@@ -48,6 +56,11 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", _SIGNATURES)
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel ``dtype`` takes."""
+    return _lib().repro_flash_attention_smem_bytes(hd, int(dtype == torch.bfloat16))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,9 +90,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_flash_attention(
+        err = getattr(lib, ENTRY[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, KV, G, hd,
-            int(window), DTYPES[q.dtype], 1.0 / math.sqrt(hd), stream)
+            int(window), 1.0 / math.sqrt(hd), stream)
     _build.check_launch(err, "flash_attention")
     with _launch_lock:
         LAUNCHES["flash_attention"] += 1

@@ -76,9 +76,27 @@ def test_strategies_on_cuda_launch_the_kernels(cuda):
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+def assert_attention_close(got, want, dtype):
+    """The reference's tolerances, with bf16's atol scaled by max|want| where
+    that is below 1: outputs of ~0.01 (a long cache) would meet a plain 2e-2
+    with zeros."""
+    tol = atol = ATTN_TOL[dtype]
+    if dtype == torch.bfloat16:
+        atol = tol * min(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=atol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,KV,G,hd,window", [(2, 256, 2, 2, 64, 0), (1, 333, 2, 3, 128, 100),
-                                                (1, 128, 2, 2, 256, 64), (8, 512, 8, 4, 64, 0)])
+@pytest.mark.parametrize("B,S,KV,G,hd,window", [
+    (2, 256, 2, 2, 64, 0), (1, 333, 2, 3, 128, 100), (1, 128, 2, 2, 256, 64), (8, 512, 8, 4, 64, 0),
+    (2, 200, 4, 2, 32, 0),      # hd 32, ragged S
+    (1, 256, 8, 5, 128, 0),     # qwen3-14b's group: KV 8, G 5, hd 128
+    (1, 333, 16, 1, 256, 0),    # gemma-7b's: KV 16, G 1, hd 256, ragged S
+    (2, 200, 2, 16, 64, 50),    # G 16, windowed, ragged
+    (1, 96, 1, 64, 64, 0),      # the widest group: one position per q tile
+    (1, 64, 1, 32, 256, 16),    # the widest group at hd 256, windowed
+    (1, 1, 2, 4, 64, 0),        # S = 1
+])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, KV, G, hd, window):
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -90,14 +108,16 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, KV, G, hd, wind
     got = fk.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert fk.LAUNCHES["flash_attention"] == before + 1 and got.dtype == dtype
-    tol = ATTN_TOL[dtype]
-    torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v, window=window).float(),
-                               rtol=tol, atol=tol)
+    assert_attention_close(got, flash_attention_ref(q, k, v, window=window), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,KV,G,hd,C", [(2, 2, 4, 64, 1024), (8, 8, 4, 64, 576),
-                                         (1, 2, 2, 256, 256), (3, 1, 6, 128, 1000)])
+@pytest.mark.parametrize("B,KV,G,hd,C", [
+    (2, 2, 4, 64, 1024), (8, 8, 4, 64, 576), (1, 2, 2, 256, 256), (3, 1, 6, 128, 1000),
+    (2, 8, 4, 64, 1), (1, 2, 5, 128, 63), (8, 8, 4, 64, 32768), (2, 2, 16, 64, 1000),
+    (1, 16, 1, 256, 576), (2, 2, 4, 32, 100),
+    (1, 1, 16, 256, 576),       # the largest block: G 16 at hd 256 (recurrentgemma-9b's group)
+])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, B, KV, G, hd, C):
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -110,9 +130,63 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, B, KV, G, hd, C):
     got = dk.decode_attention(q, k, v, valid)
     torch.cuda.synchronize()
     assert dk.LAUNCHES["decode_attention"] == before + 1 and got.dtype == dtype
-    tol = ATTN_TOL[dtype]
-    torch.testing.assert_close(got.float(), decode_attention_ref(q, k, v, valid).float(),
-                               rtol=tol, atol=tol)
+    assert_attention_close(got, decode_attention_ref(q, k, v, valid), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["invalid_slice", "no_valid_slot"])
+def test_decode_attention_kernel_masked_slices(cuda, dtype, case):
+    """A split whose slots are all invalid weighs nothing; a ring with no
+    valid slot at all gives the plain mean of v, as the reference does."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref, split_bounds
+
+    B, KV, G, hd, C = 8, 8, 4, 64, 576
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(B, KV, G, hd, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, C, KV, hd, device=cuda, generator=g).to(dtype) for _ in range(2))
+    n = dk.split_count(B, KV, C, dk.sm_count(q.device))
+    assert n > 1
+    if case == "invalid_slice":
+        valid = torch.rand(C, device=cuda, generator=g) < 0.7
+        lo, hi = split_bounds(C, n)[1]
+        valid[lo:hi] = False
+    else:
+        valid = torch.zeros(C, dtype=torch.bool, device=cuda)
+    before = dk.LAUNCHES["decode_attention"]
+    got = dk.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["decode_attention"] == before + 1
+    assert_attention_close(got, decode_attention_ref(q, k, v, valid), dtype)
+    if case == "no_valid_slot":
+        assert_attention_close(got, v.float().mean(1)[:, :, None].expand_as(got), dtype)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, 8])
+def test_decode_attention_kernel_any_split_matches_plain(cuda, n_split):
+    """Every cluster size gives the plain version's output (C = 1000: ragged
+    slices), in one launch."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    g = torch.Generator(device=cuda).manual_seed(n_split)
+    q = torch.randn(2, 2, 4, 64, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(2, 1000, 2, 64, device=cuda, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    valid = torch.rand(1000, device=cuda, generator=g) < 0.7
+    before = dk.LAUNCHES["decode_attention"]
+    got = dk._launch(q, k, v, valid, n_split=n_split)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["decode_attention"] == before + 1
+    assert_attention_close(got, decode_attention_ref(q, k, v, valid), torch.bfloat16)
+
+
+def test_decode_split_fills_the_card(cuda):
+    """At the serving shape the split gives at least two blocks per SM."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+
+    sms = dk.sm_count(torch.device("cuda"))
+    assert 8 * 8 * dk.split_count(8, 8, 576, sms) >= 2 * sms
 
 
 def test_serving_path_runs_the_attention_kernels(cuda):
