@@ -88,7 +88,7 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference's own
 # the outputs are ~0.01, under a plain 2e-2, which zeros would meet.
 # Each port kernel's function name in a profiler trace.
 KERNEL_SYMBOLS = {"flash_attention": "flash_mma_kernel", "decode_attention": "decode_split_kernel",
-                  "ssd_scan": "ssd_scan_kernel"}
+                  "ssd_scan": "ssd_mma_kernel"}
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s, and the f32 rate
 # outside the tensor cores (the fed kernels' arithmetic), flop/s.
@@ -349,70 +349,74 @@ def split_sweep(dk, sets, B, KV, G, hd) -> list:
             for n in range(1, dk.MAX_SPLIT + 1)]
 
 
-def attn_build_report(lib_paths: dict) -> dict:
-    """What the compiler made of the attention kernels, read from the built
-    libraries (``cuobjdump``, from the toolkit; a cached build reads the
-    same): each instance's registers, stack frame (where spills go) and
-    static shared memory (``-res-usage``), its local-memory stores (``STL``,
-    spill stores) and, for the flash library, its tensor-core instructions
-    (HMMA/HGMMA) in the SASS; beside them the dynamic shared memory of a
-    block. Raises if the bf16 flash kernel has no tensor-core instruction:
-    it is meant to run on the tensor cores."""
+def sass_report(lib_path, mma_prefix: str | None = None) -> dict:
+    """What the compiler made of one built library, read with ``cuobjdump``
+    (from the toolkit; a cached build reads the same): each kernel
+    instance's registers, stack frame (where spills go) and static shared
+    memory (``-res-usage``), and in its SASS the local-memory stores
+    (``STL``, spill stores) and the tensor-core instructions (HMMA/HGMMA).
+    With ``mma_prefix``, raises if an instance whose name starts with it has
+    no tensor-core instruction: those are meant to run on the tensor cores."""
     import re
     from pathlib import Path
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import kernel as dk
-    from repro_torch.kernels.flash_attention import kernel as fk
 
     def demangle_short(mangled: str) -> str:
-        m = re.search(r"(flash_[a-z]+_kernel|decode_[a-z]+_kernel)I(.*?)EEv", mangled)
+        m = re.search(r"((?:flash|decode|ssd)_[a-z]+_kernel)I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                      mangled)
         if not m:
             return mangled
-        args = re.sub(r"Li(\d+)E", r"\1,", m.group(2)).replace("13__nv_bfloat16", "bf16,")
-        args = "f32," + args[1:] if args.startswith("f") else args
-        return f"{m.group(1)}<{args.rstrip(',')}>"
+        args = ["f32" if f else "bf16" if b else n
+                for n, f, b in re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)", m.group(2))]
+        return f"{m.group(1)}<{','.join(args)}>"
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
 
-    def dump(flag: str, name: str) -> str:
-        return subprocess.run([str(cuobjdump), flag, str(lib_paths[name])],
+    def dump(flag: str) -> str:
+        return subprocess.run([str(cuobjdump), flag, str(lib_path)],
                               capture_output=True, text=True, check=True).stdout
 
-    report = {}
-    for name in ("flash_attention", "decode_attention"):
-        instances, current = {}, None
-        for line in dump("-res-usage", name).splitlines():
-            if line.strip().startswith("Function "):
-                current = demangle_short(line.strip()[len("Function "):].rstrip(":"))
-            elif current and "REG:" in line:
-                usage = dict(re.findall(r"(\w+):(\d+)", line))
-                instances[current] = {"registers": int(usage["REG"]),
-                                      "stack_bytes": int(usage["STACK"]),
-                                      "static_smem_bytes": int(usage["SHARED"]),
-                                      "local_bytes": int(usage["LOCAL"])}
-                current = None
-        counts, current = {}, None
-        for line in dump("-sass", name).splitlines():
-            if "Function : " in line:
-                current = demangle_short(line.split("Function : ")[1].strip())
-                counts[current] = {"hmma": 0, "stl": 0}
-            elif current and re.search(r"\bH(G)?MMA\b", line):
-                counts[current]["hmma"] += 1
-            elif current and re.search(r"\bSTL(\.\w+)*\b", line):
-                counts[current]["stl"] += 1
-        if not instances or set(instances) != set(counts):
-            raise AssertionError(f"{name}: cuobjdump's resource usage and SASS list different "
-                                 f"functions: {sorted(instances)} vs {sorted(counts)}")
-        for fn, c in counts.items():
-            instances[fn]["local_store_instructions"] = c["stl"]
-            if name == "flash_attention":
-                instances[fn]["sass_hmma_count"] = c["hmma"]
-        report[name] = {"instances": instances}
-    mma = {f: i["sass_hmma_count"] for f, i in report["flash_attention"]["instances"].items()
-           if f.startswith("flash_mma_kernel")}
-    if not mma or min(mma.values()) == 0:
-        raise AssertionError(f"the bf16 flash kernel has no tensor-core instruction: {mma}")
+    instances, current = {}, None
+    for line in dump("-res-usage").splitlines():
+        if line.strip().startswith("Function "):
+            current = demangle_short(line.strip()[len("Function "):].rstrip(":"))
+        elif current and "REG:" in line:
+            usage = dict(re.findall(r"(\w+):(\d+)", line))
+            instances[current] = {"registers": int(usage["REG"]),
+                                  "stack_bytes": int(usage["STACK"]),
+                                  "static_smem_bytes": int(usage["SHARED"]),
+                                  "local_bytes": int(usage["LOCAL"])}
+            current = None
+    counts, current = {}, None
+    for line in dump("-sass").splitlines():
+        if "Function : " in line:
+            current = demangle_short(line.split("Function : ")[1].strip())
+            counts[current] = {"hmma": 0, "stl": 0}
+        elif current and re.search(r"\bH(G)?MMA\b", line):
+            counts[current]["hmma"] += 1
+        elif current and re.search(r"\bSTL(\.\w+)*\b", line):
+            counts[current]["stl"] += 1
+    if not instances or set(instances) != set(counts):
+        raise AssertionError(f"{lib_path}: cuobjdump's resource usage and SASS list different "
+                             f"functions: {sorted(instances)} vs {sorted(counts)}")
+    for fn, c in counts.items():
+        instances[fn]["local_store_instructions"] = c["stl"]
+        instances[fn]["sass_hmma_count"] = c["hmma"]
+    mma = {f: c["hmma"] for f, c in counts.items() if mma_prefix and f.startswith(mma_prefix)}
+    if mma_prefix and (not mma or min(mma.values()) == 0):
+        raise AssertionError(f"{mma_prefix} has no tensor-core instruction: {mma}")
+    return {"instances": instances}
+
+
+def attn_build_report(lib_paths: dict) -> dict:
+    """``sass_report`` of the attention libraries (the bf16 flash kernel must
+    run on the tensor cores), beside the dynamic shared memory of a block."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    report = {"flash_attention": sass_report(lib_paths["flash_attention"], "flash_mma_kernel"),
+              "decode_attention": sass_report(lib_paths["decode_attention"])}
     report["flash_attention"]["dynamic_smem_bytes"] = {
         f"hd={hd} {str(dt)[6:]}": fk.smem_bytes(hd, dt)
         for hd in fk.HEAD_DIMS for dt in fk.DTYPES}
@@ -423,6 +427,18 @@ def attn_build_report(lib_paths: dict) -> dict:
         dynamic_smem_bytes_largest=dk.smem_bytes(256, dk.MAX_G, torch.bfloat16, dk.MAX_SPLIT),
         clusters_resident_serving=dk.cluster_capacity(64, 4, torch.bfloat16, n_split),
         clusters_needed_serving=SERVE_B * 8)
+    return report
+
+
+def ssd_build_report(lib_paths: dict) -> dict:
+    """``sass_report`` of the SSD library (the bf16 cluster kernel must run on
+    the tensor cores), beside each instance's dynamic shared memory."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    report = sass_report(lib_paths["ssd_scan"], "ssd_mma_kernel")
+    report["dynamic_smem_bytes"] = {f"P={P} N={N} {str(dt)[6:]}": sk.smem_bytes(P, N, dt)
+                                    for P in sk.HEAD_DIMS for N in sk.STATE_DIMS
+                                    for dt in sk.DTYPES}
     return report
 
 
@@ -460,8 +476,8 @@ def ssd_bound(card: str, *, B: int, S: int, H: int, P: int, N: int, chunk: int,
 
 def check_ssd(dev, gen) -> tuple[list, float]:
     """ssd_scan against its plain version: the reference's four sweeps (f32,
-    its dA, its 1e-4); then, with the model's dA, the serving shape in bf16
-    (2e-2, atol scaled by min(1, max|want|)), a ragged S = 1000 and a nonzero
+    its dA, its 1e-4); then, with the model's dA, the serving shape and S =
+    8192 in bf16 (2e-2, atol scaled by min(1, max|want|)), a ragged S = 1000 and a nonzero
     initial state (f32, 1e-4), and each final state at 1e-4 relative. With
     the model's dA the running sum of dA reaches ~-5000 in a chunk, where f32
     prefix sums (the reference's arithmetic, and the plain version's in f32)
@@ -495,6 +511,7 @@ def check_ssd(dev, gen) -> tuple[list, float]:
         hold(got, ssd_scan_sequential(x, dA, Bm, Cm), 1e-3, 1e-3, note + " vs sequential")
     cases = [  # B, S, H, P, N, chunk, dtype, initial state
         (SSM_B, SSM_S, 24, 64, 128, 256, torch.bfloat16, False),
+        (1, 8192, 24, 64, 128, 256, torch.bfloat16, True),  # 32 chunks: 4 cluster rounds
         (2, 1000, 24, 64, 128, 256, torch.float32, False),
         (2, 1000, 4, 64, 128, 256, torch.float32, True),
         (1, 333, 3, 128, 64, 128, torch.float32, True)]
@@ -525,31 +542,48 @@ def check_ssd(dev, gen) -> tuple[list, float]:
     return checks, max_err
 
 
-def time_ssd(dev, gen, card) -> dict:
+SSD_TIME_SHAPES = [(SSM_B, SSM_S), (1, 16384)]  # B, S: the serving prefill, a single long prompt
+
+
+def time_ssd(dev, gen, card) -> list:
     """Device times (``time_ms``) of ssd_scan and its plain version at the
-    Mamba2 serving prefill's shape (bf16, B/C shared, the state read from and
-    written into a cache), beside the bound. The inputs (123 MB) exceed the
-    L2 alone, so one set. The plain version launches ~50 kernels a call, so
-    it is timed over 5 calls (see ``time_ms``). No single PyTorch call
-    computes the scan."""
+    Mamba2 serving prefill's shape and at a single long prompt (mamba2-130m's
+    widths, bf16, B/C shared, the state read from and written into a cache),
+    beside the bound; at each, the cluster-size sweep. The inputs (123 MB at
+    the serving shape) exceed the L2 alone, so one set. The plain version
+    launches ~50 kernels a call, so it is timed over 5 calls (see
+    ``time_ms``). No single PyTorch call computes the scan."""
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-    B, S, H, P, N, chunk = SSM_B, SSM_S, 24, 64, 128, 256
-    x, dA, Bm, Cm = ssd_case(dev, gen, B, S, H, P, N, torch.bfloat16)
-    state = torch.zeros(B, H, P, N, device=dev)
-    wide = (B, S, H, N)
-    return {
-        "name": "ssd_scan", "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16, "
-                                     "B/C shared by the heads, state in and out",
-        "kernel_ms": time_ms(lambda: sk.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=state,
-                                            state_out=state)),
-        "plain_ms": time_ms(lambda: ssd_chunked(x, dA, Bm[:, :, None].expand(wide),
-                                                Cm[:, :, None].expand(wide), chunk,
-                                                initial_state=state), reps=5),
-        "library_ms": None, "library": "none (no single PyTorch call computes the scan)",
-        "inputs": "one set (123 MB, beyond the L2)",
-        **ssd_bound(card, B=B, S=S, H=H, P=P, N=N, chunk=chunk, itemsize=2)}
+    H, P, N, chunk = 24, 64, 128, 256
+    timings = []
+    for B, S in SSD_TIME_SHAPES:
+        x, dA, Bm, Cm = ssd_case(dev, gen, B, S, H, P, N, torch.bfloat16)
+        state = torch.zeros(B, H, P, N, device=dev)
+        wide = (B, S, H, N)
+        nc = -(-S // chunk)
+        timings.append({
+            "name": "ssd_scan", "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16, "
+                                         "B/C shared by the heads, state in and out",
+            "cluster": sk.plan_cluster(B, S, H, P, N, chunk), "chunks": nc,
+            "kernel_ms": time_ms(lambda: sk.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=state,
+                                                state_out=state)),
+            "plain_ms": time_ms(lambda: ssd_chunked(x, dA, Bm[:, :, None].expand(wide),
+                                                    Cm[:, :, None].expand(wide), chunk,
+                                                    initial_state=state), reps=5),
+            "library_ms": None, "library": "none (no single PyTorch call computes the scan)",
+            "inputs": "one set",
+            **ssd_bound(card, B=B, S=S, H=H, P=P, N=N, chunk=chunk, itemsize=2),
+            "by_cluster": [{"cluster": n, "rounds": -(-nc // n),
+                            "kernel_ms": time_ms(lambda: sk._launch(
+                                x, dA, Bm, Cm, chunk=chunk, initial_state=state, state_out=state,
+                                cluster=n)),
+                            "clusters_resident": sk.cluster_capacity(P, N, n),
+                            "clusters_needed": B * H}
+                           for n in range(1, sk.MAX_CLUSTER + 1)]})
+        del x, dA, Bm, Cm, state
+    return timings
 
 
 def serving_consistency(dev, arch: str, batch: int, prompt: int, new_tokens: int,
@@ -815,7 +849,8 @@ def timer_check(timings: list, profiles: dict) -> dict:
     a kernel's device time summed over its launches in the trace, over their
     count. The two should agree within ~15%."""
     shapes = {"flash_attention": f"B={SERVE_B} S={SERVE_S}",
-              "decode_attention": f"B={SERVE_B} C={SERVE_S + SERVE_NEW}", "ssd_scan": ""}
+              "decode_attention": f"B={SERVE_B} C={SERVE_S + SERVE_NEW}",
+              "ssd_scan": f"B={SSM_B} S={SSM_S} "}
     out = {}
     for name, profile in profiles.items():
         t = next(t for t in timings if t["name"] == name and t["shape"].startswith(shapes[name]))
@@ -935,9 +970,10 @@ def main() -> None:
     # -- 7. ssd_kernel_check / 8. ssd_kernels --------------------------------------
     ssd_checks, max_err["ssd_scan"] = check_ssd(dev, gen)
     emit("ssd_kernel_check", checks=ssd_checks)
-    ssd_timing = time_ssd(dev, gen, card)
-    timings.append(ssd_timing)
-    emit("ssd_kernels", card=card, nvidia_smi=smi, timings=[ssd_timing])
+    ssd_timings = time_ssd(dev, gen, card)
+    timings += ssd_timings
+    emit("ssd_kernels", card=card, nvidia_smi=smi, timings=ssd_timings,
+         compiled=ssd_build_report(libs))
 
     # -- 9. federation: the port's first main path, end to end -------------------
     from repro_torch.api import connect
@@ -1068,7 +1104,7 @@ def main() -> None:
     main_shape = {t["name"]: t for t in timings
                   if t.get("K") == 4 or t.get("shape", "").startswith(f"B={SERVE_B} S={SERVE_S}")
                   or t.get("shape", "").startswith(f"B={SERVE_B} C={SERVE_S + SERVE_NEW}")
-                  or t["name"] == "ssd_scan"}
+                  or t.get("shape", "").startswith(f"B={SSM_B} S={SSM_S} ")}
     sources = {"fed_agg": ("src/repro_torch/csrc/fed_agg.cu", "src/repro/kernels/fed_agg/kernel.py:62"),
                "fed_opt": ("src/repro_torch/csrc/fed_agg.cu", "src/repro/kernels/fed_agg/kernel.py:144"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -52,6 +52,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
@@ -299,55 +301,9 @@ struct MmaShape {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row-major) . b (16x8, column-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Fragment layout (PTX ISA, mma.m16n8k16): lane = 4 * g + t. An f32
-// accumulator tile (16 x 8) gives the lane rows g and g + 8, columns 2t and
-// 2t + 1: c[0], c[1] on row g, c[2], c[3] on row g + 8. So the lane's two
-// rows are r_a = 16 * warp + g and r_b = r_a + 8 of the q tile, and a row's
-// statistics are spread over the 4 lanes of its quad.
+// A lane's two rows (see mma_bf16.cuh) are r_a = 16 * warp + g and r_b =
+// r_a + 8 of the q tile, and a row's statistics are spread over the 4 lanes
+// of its quad.
 template <int HD>
 __global__ void __launch_bounds__(MMA_THREADS, MmaShape<HD>::MIN_BLOCKS)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -6,6 +6,10 @@ core of ``repro.models.ssm``; ``repro_torch.models.ssm`` takes them from here
 (the model imports the op, and the op imports this file, so the core lives
 below both). ``ssd_scan_ref`` and ``ssd_scan_sequential`` are the port of
 ``repro.kernels.ssd_scan.ref``: the (BH, S, P) layout of the TPU kernel.
+``ssd_cluster_ref`` emulates the bf16 CUDA kernel's arithmetic (chunk states
+computed apart, chained over the ranks of a cluster and its rounds, bf16
+operands where the kernel rounds to bf16) for the CPU tests; nothing on the
+card's path calls it.
 """
 from __future__ import annotations
 
@@ -66,6 +70,65 @@ def ssd_chunked(x, dA, Bm, Cm, chunk: int, initial_state=None):
     y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Cc, prev, torch.exp(A_cumsum))
     y = (y_diag + y_off).reshape(Bsz, Sp, H, P)[:, :S]
     return y.to(x.dtype), state
+
+
+def ssd_cluster_ref(x, dA, Bm, Cm, chunk: int, initial_state=None, *, cluster: int = 8,
+                    bf16_products: bool = True, split_state: bool = True):
+    """The arithmetic of ``csrc/ssd_scan.cu``'s bf16 kernel in plain PyTorch.
+    Same arguments and results as ``ssd_chunked``. Per chunk, apart: the
+    running sum of dA in f64, each decay exp(f32(difference)); the chunk's
+    own state S_c = (x o exp(cums_last - cums))^T . B. Then the scan: a
+    cluster of ``cluster`` blocks takes ``cluster`` chunks a round, and the
+    state h (the initial state, then the previous round's) is chained
+    through them, h <- h * exp(cums_last) + S_c, the value before each step
+    being the state entering that chunk. Then y = (C.B^T o L).x +
+    (C.state^T) o exp(cums). With ``bf16_products`` every tensor-core
+    operand is rounded to bf16 as the kernel rounds it: the masked, decayed
+    scores, the entering state in C.state^T, and x o decay in S_c; that last
+    one as two bf16 terms, hi = bf16(v) and lo = bf16(v - hi), with
+    ``split_state``, else as one. Products accumulate in f32."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if Bm.dim() == 3:
+        Bm, Cm = (t[:, :, None].expand(Bsz, S, H, N) for t in (Bm, Cm))
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    f32 = torch.float32
+    xc = F.pad(x.to(f32), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, chunk, H, P)
+    Bc, Cc = (F.pad(t.to(f32), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, chunk, H, N)
+              for t in (Bm, Cm))
+    cums = torch.cumsum(F.pad(dA.double(), (0, 0, 0, pad)).reshape(Bsz, nc, chunk, H), dim=2)
+    last = cums[:, :, -1]                                             # (B,nc,H) f64
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(f32) if bf16_products else t
+
+    # phase A, every chunk apart: its own contribution to the state
+    v = xc * torch.exp((last[:, :, None] - cums).to(f32))[..., None]
+    terms = [bf16(v)]
+    if bf16_products and split_state:
+        terms.append(bf16(v - terms[0]))
+    states = sum(torch.einsum("bcshp,bcshn->bchpn", t, Bc) for t in terms)  # (B,nc,H,P,N)
+    decay = torch.exp(last.to(f32))                                   # (B,nc,H)
+    # the scan over the ranks of each round
+    h = (torch.zeros(Bsz, H, P, N, dtype=f32) if initial_state is None
+         else initial_state.to(f32))
+    entering = []
+    for rnd in range(-(-nc // cluster)):
+        for rank in range(min(cluster, nc - rnd * cluster)):
+            c = rnd * cluster + rank
+            entering.append(h)
+            h = h * decay[:, c, :, None, None] + states[:, c]
+    prev = bf16(torch.stack(entering, dim=1))                         # (B,nc,H,P,N)
+    # phase B: y = (C.B^T o L).x + (C.state^T) o exp(cums)
+    y_off = torch.einsum("bclhn,bchpn->bclhp", Cc, prev) * torch.exp(cums.to(f32))[..., None]
+    diff = (cums[:, :, :, None] - cums[:, :, None, :]).to(f32)       # (B,nc,i,j,H)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+    scores = bf16(torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L)
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
+    y = (y_diag + y_off).reshape(Bsz, nc * chunk, H, P)[:, :S]
+    return y.to(x.dtype), h
 
 
 def ssd_sequential(x, dA, Bm, Cm, initial_state=None):

@@ -319,3 +319,139 @@ def test_ssd_kernel_at_the_models_decay_against_f64(cuda):
     torch.testing.assert_close(got_y.double(), want_y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_state.double(), want_state, rtol=1e-4,
                                atol=1e-4 * float(want_state.abs().max()))
+
+
+def _ssd_model_case(dev, g, B, S, H, P, N, dtype):
+    """Mamba2 SSD inputs as the model makes them: dt = softplus(N(0,1)),
+    A = -(1..H), x = bf16(xh)·bf16(dt), dA = dt·A in f32, B/C (B,S,N) shared
+    by the heads."""
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=dev, generator=g))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    x = (torch.randn(B, S, H, P, device=dev, generator=g) * 0.5).to(dtype) * dt[..., None].to(dtype)
+    Bm, Cm = ((torch.randn(B, S, N, device=dev, generator=g) * 0.5).to(dtype) for _ in range(2))
+    return x, dt * A, Bm, Cm
+
+
+def _ssd_against_f64(x, dA, Bm, Cm, chunk, init, got_y, got_state):
+    """bf16 y at 2e-2 (atol scaled by min(1, max|want|)) and the final state
+    at 1e-4 relative to its largest value, against ssd_chunked in f64."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    wide = (*Bm.shape[:2], x.shape[2], Bm.shape[-1])
+    want_y, want_state = ssd_chunked(x.double(), dA.double(), Bm[:, :, None].expand(wide).double(),
+                                     Cm[:, :, None].expand(wide).double(), chunk,
+                                     initial_state=None if init is None else init.double())
+    assert torch.isfinite(got_y.float()).all() and got_y.dtype == x.dtype
+    atol = 2e-2 * min(1.0, float(want_y.abs().max()))
+    torch.testing.assert_close(got_y.double(), want_y, rtol=2e-2, atol=atol)
+    torch.testing.assert_close(got_state.double(), want_state, rtol=1e-4,
+                               atol=1e-4 * float(want_state.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,H,chunk", [
+    (8, 2048, 24, 256),         # mamba2-130m's serving prefill: 8 chunks, one cluster round
+    (1, 8192, 24, 256),         # 32 chunks: 4 rounds
+    (2, 2048 + 77, 24, 256),    # 9 chunks: 2 rounds, the last chunk ragged
+    (2, 200, 24, 256),          # one chunk: a cluster of 1
+    (1, 2560, 24, 256),         # 10 chunks: not a multiple of the cluster
+    (1, 16384, 24, 256),        # a single long prompt: 64 chunks, 8 rounds
+    (2, 77, 4, 32),             # 3 chunks of 32, the last ragged
+])
+def test_ssd_bf16_cluster_kernel_against_f64(cuda, B, S, H, chunk):
+    """The bf16 cluster kernel at the model's decays, with a nonzero initial
+    state and the final state written in place over it, one launch a call."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    g = torch.Generator(device=cuda).manual_seed(S + B)
+    x, dA, Bm, Cm = _ssd_model_case(cuda, g, B, S, H, 64, 128, torch.bfloat16)
+    init = torch.randn(B, H, 64, 128, device=cuda, generator=g) * 0.3
+    state = init.clone()
+    before = sk.LAUNCHES["ssd_scan"]
+    got_y, got_state = sk.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=state, state_out=state)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_scan"] == before + 1
+    assert got_state.data_ptr() == state.data_ptr()
+    _ssd_against_f64(x, dA, Bm, Cm, chunk, init, got_y, got_state)
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_ssd_bf16_any_cluster_matches_plain(cuda, cluster):
+    """Every cluster size the kernel takes (1 to 8 blocks, rounds of chunks
+    where there are more) gives the same scan."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    g = torch.Generator(device=cuda).manual_seed(cluster)
+    B, S, H, chunk = 1, 2048 + 77, 6, 256
+    x, dA, Bm, Cm = _ssd_model_case(cuda, g, B, S, H, 64, 128, torch.bfloat16)
+    init = torch.randn(B, H, 64, 128, device=cuda, generator=g) * 0.3
+    got_y, got_state = sk._launch(x, dA, Bm, Cm, chunk=chunk, initial_state=init, cluster=cluster)
+    torch.cuda.synchronize()
+    _ssd_against_f64(x, dA, Bm, Cm, chunk, init, got_y, got_state)
+
+
+@pytest.mark.parametrize("P,N", [(64, 32), (64, 64), (128, 32), (128, 64), (128, 128)])
+def test_ssd_bf16_other_widths(cuda, P, N):
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    g = torch.Generator(device=cuda).manual_seed(P + N)
+    B, S, H, chunk = 2, 600, 3, 128
+    x, dA, Bm, Cm = _ssd_model_case(cuda, g, B, S, H, P, N, torch.bfloat16)
+    init = torch.randn(B, H, P, N, device=cuda, generator=g) * 0.3
+    got_y, got_state = sk.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    _ssd_against_f64(x, dA, Bm, Cm, chunk, init, got_y, got_state)
+
+
+def test_ssd_bf16_model_layout_views(cuda):
+    """B and C as the model slices them from the conv output (row stride
+    1,792 elements, offset 1,536): read in place, 16-byte aligned."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, S, H, P, N = 2, 700, 24, 64, 128
+    conv = (torch.randn(B, S, H * P + 2 * N, device=cuda, generator=g) * 0.5).to(torch.bfloat16)
+    xs, Bm, Cm = conv.split([H * P, N, N], dim=-1)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=cuda, generator=g))
+    x = xs.reshape(B, S, H, P) * dt[..., None].to(torch.bfloat16)
+    dA = dt * -torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
+    assert Bm.stride(1) == 1792 and Bm.storage_offset() == 1536
+    got_y, got_state = sk.ssd(x, dA, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    _ssd_against_f64(x, dA, Bm, Cm, 256, None, got_y, got_state)
+
+
+def test_ssd_bf16_raises_on_misaligned_views(cuda):
+    """The bf16 kernel reads B/C rows in 16-byte pieces: a view off that
+    grid raises, and nothing is launched or routed elsewhere."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    B, S, H, P, N = 1, 64, 2, 64, 32
+    x = torch.zeros(B, S, H, P, device=cuda, dtype=torch.bfloat16)
+    dA = torch.zeros(B, S, H, device=cuda)
+    conv = torch.zeros(B, S, 2 * N + 1, device=cuda, dtype=torch.bfloat16)
+    before = sk.LAUNCHES["ssd_scan"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sk.ssd(x, dA, conv[..., 1:N + 1], conv[..., N + 1:], chunk=32)
+    shifted = torch.zeros(B * S * H * P + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sk.ssd(shifted.view(B, S, H, P), dA, conv[..., :N], conv[..., :N], chunk=32)
+    assert sk.LAUNCHES["ssd_scan"] == before
+
+
+def test_ssd_f32_still_runs_the_fma_kernel(cuda):
+    """f32 keeps the FMA kernel, off the serving path, at the reference's
+    1e-4; a misaligned f32 view is taken (it has no 16-byte copies)."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, S, H, P, N = 1, 300, 2, 64, 32
+    x = torch.randn(B, S, H, P, device=cuda, generator=g) * 0.5
+    dA = -torch.nn.functional.softplus(torch.randn(B, S, H, device=cuda, generator=g))
+    conv = torch.randn(B, S, 2 * N + 1, device=cuda, generator=g) * 0.5
+    Bm, Cm = conv[..., 1:N + 1], conv[..., N + 1:]
+    got_y, _ = sk.ssd(x, dA, Bm, Cm, chunk=128)
+    wide = (B, S, H, N)
+    want_y, _ = ssd_chunked(x, dA, Bm[:, :, None].expand(wide), Cm[:, :, None].expand(wide), 128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_y, want_y, rtol=1e-4, atol=1e-4)
