@@ -10,6 +10,12 @@ main paths end to end:
 * the federation loop: four threaded clients (two FedAvg, two FedAdam) train
   the GroupNorm ResNet-18 at full width and federate through a disk folder
   (``fed_agg``, ``fed_opt``);
+* the federation plane: the same four clients on a two-group ``shard2+``
+  gossip store, group 0 writing ``delta(chain=4)`` and group 1
+  ``topk(adaptive)`` blobs, each group folding the other's summary in as a
+  pseudo-peer; then a publisher pushes eight frozen-backbone fine-tune steps
+  (classifier head and GroupNorm affines) through ``delta(chain=4)``, each
+  rebuilt bit for bit by a fresh reader;
 * the serving tier: a publisher pushes granite-3-2b weights (full width,
   bf16, made from a seed) to a store, ``api.serve`` deploys them, batches of
   8 prompts x 512 tokens decode 64 greedy tokens each, and a second push
@@ -46,6 +52,11 @@ N_MNIST, N_RESNET18 = 421_642, 11_176_970
 CHECK_SHAPES = [(2, N_MNIST), (4, N_RESNET18), (8, 8193), (65, 8192), (200, 4000), (3, 7)]
 TIME_SHAPES = [(4, N_RESNET18), (16, N_RESNET18)]
 FED_CLIENTS, FED_EPOCHS, FED_STEPS, FED_BATCH = 4, 3, 8, 64
+# The sharded federation: two gossip groups, one transport each (no envelope:
+# the card's machine has no zstd module, and npz's deflate would time zlib);
+# a publisher's frozen-backbone fine-tune touches the head and GN affines only.
+GOSSIP_TRANSPORTS = {0: "delta(chain=4)", 1: "topk(adaptive)"}
+PUBLISH_PUSHES, PUBLISH_FAMILY = 8, {"head_and_gn": r"^fc/|(^|/)gn[0-9]*/"}
 OPT_HP = dict(lr=0.3, b1=0.9, b2=0.95, tau=1e-2)
 
 # The serving path: granite-3-2b at full width (bf16), batches of SERVE_B
@@ -865,6 +876,246 @@ def timer_check(timings: list, profiles: dict) -> dict:
     return out
 
 
+class EpochClock:
+    """Trainer callback (the duck-typed ``repro_torch.core.Callback``): host
+    seconds of each epoch, synchronised with the card."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+
+    def on_train_begin(self, trainer):
+        pass
+
+    def on_train_end(self, trainer):
+        pass
+
+    def on_epoch_begin(self, trainer, epoch):
+        torch.cuda.synchronize()
+        self._t = time.perf_counter()
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - self._t)
+
+
+def _span_means(tels, names) -> dict:
+    """Mean ms of each named span over several nodes' telemetry."""
+    out = {}
+    for name in names:
+        count = total = 0
+        for tel in tels:
+            st = tel.recorder.phase_stats().get(name)
+            if st:
+                count += st["count"]
+                total += st["total_s"]
+        out[f"{name}_ms_mean"] = total / count * 1e3 if count else None
+        out[f"{name}_count"] = count
+    return out
+
+
+def federation_gossip(dev, root: str, model, init, shards, fk, fed_agg_ref) -> tuple[dict, dict]:
+    """The federation plane on the card: four clients train ResNet-18 on a
+    ``shard2+`` gossip store (group 0 ``delta(chain=4)``, group 1
+    ``topk(adaptive)``; a FedAvg and a FedAdam client in each group), then a
+    publisher pushes frozen-backbone fine-tune steps through
+    ``delta(chain=4)``. Raises unless (a) every client aggregated, (b)
+    ``fed_agg`` and ``fed_opt`` launched, (c) a fresh reader of each group sees
+    the other group's summary, (d) every deposit reads back as its writer
+    shipped it, (e) each summary is the example-weighted mean of its group's
+    latest flats, (f) ``fed_agg`` over each group's pulled stack matches its
+    plain version, and every publisher push is rebuilt bit for bit through a
+    chain of depth 4 and a re-anchor. Returns (phase record, launches)."""
+    import numpy as np
+
+    from repro_torch.api import connect
+    from repro_torch.core import (AsyncFederatedNode, FederatedCallback, NodeUpdate, Telemetry,
+                                  balanced_groups, run_threaded)
+    from repro_torch.core.serialize import deserialize_update_flat, peek_meta, serialize_update
+    from repro_torch.core.strategies import FedAdam, FedAvg
+    from repro_torch.core.tree import LeafSpec
+    from repro_torch.data import batch_iterator
+    from repro_torch.optim import adam
+    from repro_torch.training import Trainer
+
+    uri = f"shard2+{root}/fleet"
+    names = [f"client{i}" for i in range(FED_CLIENTS)]
+    groups = balanced_groups(names, 2)
+    members = {g: sorted(n for n in names if groups[n] == g) for g in (0, 1)}
+    if sorted(map(len, members.values())) != [2, 2]:
+        raise AssertionError(f"balanced_groups gave {members}")
+    spec = LeafSpec.of(init)
+    full_blob = len(serialize_update(NodeUpdate(init, 1, "x")))
+    trails: dict[str, list] = {}
+
+    def client(name: str):
+        g = groups[name]
+        tel = Telemetry(enabled=True)
+        store = connect(uri, transport=GOSSIP_TRANSPORTS[g], keep_history=True, group_of=groups,
+                        telemetry=tel)
+        strategy = FedAvg() if members[g].index(name) == 0 else FedAdam(server_lr=1e-3, tau=1e-3)
+        pushes = trails[name] = []
+
+        def on_step(node, _aggregated):  # the size of each deposit, and whether it rebased
+            blob = store.folders.group_folder(g).get(f"latest/{name}")
+            pushes.append({"bytes": len(blob), "delta": "delta_of" in peek_meta(blob),
+                           "rebases": store._store(g).pipeline.stats.rebases})
+
+        node = AsyncFederatedNode(strategy=strategy, store=store, node_id=name, telemetry=tel,
+                                  on_step=on_step)
+        i = names.index(name)
+        trainer = Trainer(loss_fn=lambda prm, b, r: model.loss(prm, b), optimizer=adam(1e-3),
+                          init_params=init, seed=i, name=name, telemetry=tel)
+        clock = EpochClock()
+        x, y = shards[i]
+        trainer.fit(lambda e: batch_iterator(x, y, batch_size=FED_BATCH, seed=i, epoch=e),
+                    epochs=FED_EPOCHS, steps_per_epoch=FED_STEPS,
+                    callbacks=[clock, FederatedCallback(node, num_examples_per_epoch=FED_STEPS * FED_BATCH)])
+        return node, trainer, clock, tel
+
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    results = run_threaded([lambda n=n: client(n) for n in names], names=names)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    for r in results:
+        if r.error is not None:
+            raise RuntimeError(f"{r.node_id} failed:\n{r.traceback}")
+    nodes = {r.node_id: r.result for r in results}
+    for name, (node, trainer, _clock, _tel) in nodes.items():  # (a)
+        losses = [log["loss"] for log in trainer.log]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        if node.num_aggregations < 1:
+            raise AssertionError(f"{name} never aggregated")
+    for name in ("fed_agg", "fed_opt"):  # (b)
+        if launches[name] < 1:
+            raise AssertionError(f"the sharded federation never launched {name}: {launches}")
+
+    per_group, checks = {}, {}
+    for g in (0, 1):
+        transport = GOSSIP_TRANSPORTS[g]
+        # (c) a fresh reader (new store, cold caches) of the group's folder
+        reader = connect(uri, group_of=groups)
+        puller = members[g][0]
+        peers = reader.pull(exclude=puller)
+        ids = [u.node_id for u in peers]
+        if f"group:{1 - g}" not in ids:
+            raise AssertionError(f"group {g} does not see group {1 - g}'s summary: {ids}")
+        folder = reader.folders.group_folder(g)
+        latest, wire, residual_norms = {}, {}, {}
+        for name in members[g]:  # (d) every deposit reads back as its writer shipped it
+            node, _trainer, _clock, _tel = nodes[name]
+            got = connect(uri, group_of=groups).pull_node(name)
+            latest[name] = got
+            if transport.startswith("delta"):
+                want = deserialize_update_flat(folder.get(f"history/{name}/{got.counter:06d}"), {}).flat
+            else:
+                # the writer's error-feedback state: (base hash, spec, base, acc, age)
+                want = node.store._store(g).pipeline.policy._state[name][3]
+                residual_norms[name] = node.store._store(g).pipeline.stats.residual_norm
+            if got.spec.key != spec.key or not np.array_equal(got.flat, want):
+                raise AssertionError(f"{name}'s {transport} deposit does not read back as shipped")
+            stats = node.store._store(g).transport_stats()
+            wire[name] = {"pushes": trails[name], "rebases": stats["rebases"],
+                          "chain_depth": stats["chain_depth"], "reanchors": stats["reanchors"],
+                          "topk_k": stats["topk_k"],
+                          "topk_fraction_effective": stats["topk_fraction_effective"]}
+        # (e) the group summary is the example-weighted mean of the latest flats
+        summary = reader.load_summary(g, g)
+        weights = np.array([max(1, latest[n].num_examples) for n in members[g]], np.float64)
+        mean = sum(w * latest[n].flat.astype(np.float64) for w, n in zip(weights, members[g]))
+        mean /= weights.sum()
+        got = LeafSpec.of(summary.params).flatten(summary.params)
+        summary_err = float(np.abs(got - mean).max())
+        if (summary.version_vector != {n: latest[n].counter for n in members[g]}
+                or not np.allclose(got, mean, rtol=1e-6, atol=1e-6)):
+            raise AssertionError(f"group {g} summary: max abs err {summary_err}, "
+                                 f"version vector {summary.version_vector}")
+        # (f) fed_agg over the group's pulled stack (own latest, peer, summary)
+        pulled = [latest[puller]] + peers
+        stack = torch.stack([torch.from_numpy(u.flat) for u in pulled]).to(dev)
+        coeffs = torch.tensor([float(u.num_examples) for u in pulled], device=dev)
+        coeffs /= coeffs.sum()
+        out, want = fk.fed_agg(stack, coeffs), fed_agg_ref(stack, coeffs)
+        agg_err = float((out - want).abs().max())
+        if not (torch.isfinite(out).all() and torch.allclose(out, want, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"fed_agg over group {g}'s pulled stack: max abs err {agg_err}")
+        del stack
+        tels = [nodes[n][3] for n in members[g]]
+        deltas = [p["bytes"] for n in members[g] for p in trails[n] if p["delta"]]
+        per_group[transport] = {
+            "group": g, "clients": members[g], "wire": wire,
+            "delta_pushes": len(deltas),
+            "full_pushes": sum(len(trails[n]) for n in members[g]) - len(deltas),
+            "delta_bytes_per_push_mean": sum(deltas) / len(deltas) if deltas else None,
+            "delta_bytes_per_push_over_full_blob":
+                sum(deltas) / len(deltas) / full_blob if deltas else None,
+            "residual_norm": residual_norms,
+            **_span_means(tels, ("push", "encode", "decode", "gossip", "gossip.l0.refresh",
+                                 "gossip.l0.forward", "pull", "aggregate")),
+        }
+        checks[g] = {"pulled": ids, "summary_max_abs_err": summary_err,
+                     "summary_version_vector": summary.version_vector,
+                     "pulled_fed_agg_max_abs_err": agg_err}
+
+    per_client = []
+    for name, (node, trainer, clock, tel) in nodes.items():
+        phases = tel.recorder.phase_stats()
+        agg = phases.get("aggregate", {}).get("mean_s", 0.0) * 1e3
+        # the whole federation step: push (encode + gossip), pull, aggregate
+        step = sum(phases.get(p, {}).get("total_s", 0.0) for p in ("push", "pull", "aggregate"))
+        step_ms = step / len(clock.seconds) * 1e3
+        epoch_ms = sum(clock.seconds) / len(clock.seconds) * 1e3
+        per_client.append({"node": name, "group": groups[name], "strategy": node.strategy.name,
+                           "transport": GOSSIP_TRANSPORTS[groups[name]],
+                           "aggregations": node.num_aggregations,
+                           "losses": [log["loss"] for log in trainer.log], "epoch_s": clock.seconds,
+                           "aggregate_host_ms_mean": agg,
+                           "aggregate_share_of_mean_epoch": agg / epoch_ms,
+                           "federation_step_ms_mean": step_ms,
+                           "federation_step_share_of_mean_epoch": step_ms / epoch_ms})
+
+    # The publisher: a frozen-backbone fine-tune (head + GN affines) through
+    # delta(chain=4); a fresh reader rebuilds each push bit for bit.
+    ptel = Telemetry(enabled=True)
+    pub = connect(f"{root}/publish", transport="delta(chain=4)", telemetry=ptel)
+    rng = np.random.default_rng(0)
+    flat = spec.flatten(init)
+    idx = spec.family_view(PUBLISH_FAMILY).indices
+    depths, push_bytes, reader_pull_ms = [], [], []
+    for step in range(PUBLISH_PUSHES):
+        if step:
+            flat[idx] += (1e-3 * rng.standard_normal(idx.size)).astype(np.float32)
+        params = spec.unflatten(torch.from_numpy(flat).to(dev))  # the trainer's tree
+        pub.push(NodeUpdate(params, FED_STEPS * FED_BATCH, "publisher", counter=step))
+        push_bytes.append(len(pub.folder.get("latest/publisher")))
+        depths.append(pub.pipeline.stats.chain_depth)
+        reader = connect(f"{root}/publish")
+        t1 = time.perf_counter()
+        got = reader.pull_node("publisher")
+        reader_pull_ms.append((time.perf_counter() - t1) * 1e3)
+        if got is None or got.counter != step or not np.array_equal(got.flat, flat):
+            raise AssertionError(f"publisher push {step} (chain depth {depths[-1]}) "
+                                 "was not rebuilt bit for bit")
+    pstats = pub.transport_stats()
+    if 4 not in depths or depths[depths.index(4) + 1] != 1 or pstats["reanchors"] < 1:
+        raise AssertionError(f"publisher chain depths {depths}: no depth 4 then re-anchor")
+    deltas = push_bytes[1:]
+    per_group["publisher delta(chain=4)"] = {
+        "pushes": PUBLISH_PUSHES, "changed_entries": int(idx.size), "chain_depths": depths,
+        "bytes_per_push": push_bytes, "delta_bytes_per_push_mean": sum(deltas) / len(deltas),
+        "delta_bytes_per_push_over_full_blob": sum(deltas) / len(deltas) / full_blob,
+        "rebases": pstats["rebases"], "reanchors": pstats["reanchors"],
+        "max_chain_depth": pstats["max_chain_depth"],
+        "fresh_reader_pull_ms": reader_pull_ms,
+        **_span_means([ptel], ("encode",)),
+    }
+    return ({"model": "ResNet-18 GN", "params": spec.num_params, "uri": "shard2+<tmpdir>/fleet",
+             "groups": members, "full_blob_bytes": full_blob, "wall_s": wall, "launches": launches,
+             "clients": per_client, "transports": per_group, "checks": checks}, launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -977,7 +1228,7 @@ def main() -> None:
 
     # -- 9. federation: the port's first main path, end to end -------------------
     from repro_torch.api import connect
-    from repro_torch.core import AsyncFederatedNode, Callback, FederatedCallback, run_threaded
+    from repro_torch.core import AsyncFederatedNode, FederatedCallback, run_threaded
     from repro_torch.core.partition import partition_dataset
     from repro_torch.core.strategies import FedAdam, FedAvg
     from repro_torch.data import batch_iterator, make_synthetic_cifar
@@ -992,18 +1243,6 @@ def main() -> None:
     init = model.init(0, device=dev)  # one common init, copied by each trainer
     n_params = sum(t.numel() for t in tree_leaves(init))
     assert n_params == N_RESNET18, n_params
-
-    class EpochClock(Callback):
-        def __init__(self):
-            self.seconds: list[float] = []
-
-        def on_epoch_begin(self, trainer, epoch):
-            torch.cuda.synchronize()
-            self._t = time.perf_counter()
-
-        def on_epoch_end(self, trainer, epoch, logs):
-            torch.cuda.synchronize()
-            self.seconds.append(time.perf_counter() - self._t)
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_smoke_") as folder:
         def client(i: int):
@@ -1066,7 +1305,15 @@ def main() -> None:
     emit("federation", model="ResNet-18 GN", params=n_params, clients=per_client,
          wall_s=wall, launches=launches, pulled_fed_agg_max_abs_err=err)
 
-    # -- 10. serving_consistency / 11. serving: the port's second main path -----
+    # -- 10. federation_gossip: the federation plane (sharded gossip, delta and
+    #        top-k transports) on the same model and data ----------------------
+    with tempfile.TemporaryDirectory(prefix="repro_torch_gossip_") as root:
+        record, gossip_launches = federation_gossip(dev, root, model, init, shards, fk,
+                                                    fed_agg_ref)
+    emit("federation_gossip", card=card, nvidia_smi=smi, **record)
+    launches = {name: launches[name] + gossip_launches[name] for name in launches}
+
+    # -- 11. serving_consistency / 12. serving: the port's second main path -----
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -1086,7 +1333,7 @@ def main() -> None:
     profiles = {"flash_attention": record["profile"]["prefill"],
                 "decode_attention": record["profile"]["prefill_and_16_tokens"]}
 
-    # -- 12. serving_ssm_consistency / 13. serving_ssm: Mamba2, the reference's
+    # -- 13. serving_ssm_consistency / 14. serving_ssm: Mamba2, the reference's
     #        serving default, through the same entry points -------------------------
     emit("serving_ssm_consistency", **serving_consistency(
         dev, SSM_ARCH, SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW, ssd_kernel,

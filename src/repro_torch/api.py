@@ -3,11 +3,15 @@ URI the grammar accepts — the port of ``repro.api.connect``.
 
 **Folder-URI stages**, outermost-first, ``+``-chained::
 
-    [retry+|cache+ ...]<base>
+    [shard<G>[x<L>]+][retry+|cache+ ...]<base>
 
     ============  =====================================================
     stage         meaning
     ============  =====================================================
+    shard<G>+     partition the fleet into G node-group folders with
+                  ring gossip of group summaries (O(group) scans)
+    shard<G>x<L>+ same, gossiping through an L-level summary tree
+                  (must be the OUTERMOST stage)
     retry+        capped exponential-backoff retries on transient I/O
     cache+        read-through blob cache in front of the base folder
     <base>        ``memory://`` (anonymous, fresh per call) |
@@ -15,21 +19,25 @@ URI the grammar accepts — the port of ``repro.api.connect``.
                   a local path
     ============  =====================================================
 
-``shard<G>[x<L>]+`` (gossip-sharded stores) and ``s3://`` parse, but raise
-``NotImplementedError`` until the federation plane is ported (slice 3).
+``s3://`` parses, but raises ``NotImplementedError`` until ROADMAP Queue 1
+item 13a ports ``S3Folder``.
 
 ``serve(store, arch)`` joins a store read-only as a serving node (the port of
 ``repro.api.serve``, without ``mesh=``).
 
-**Transport pipeline specs** (``transport=``): ``full``, ``quantized``,
-either with an ``npz`` or ``zstd`` envelope (``"quantized|zstd"``). Every
-spec of the reference's grammar validates; the delta, topk and family
-policies raise ``NotImplementedError`` when the store is built (slice 3).
+**Transport pipeline specs** (``transport=``), a policy stage plus an
+optional envelope, ``|``-chained: ``"delta(chain=4)|zstd"``,
+``"topk(adaptive)"``, ``"family(adapters=delta)"``, ``"quantized|npz"``, or
+a legacy name (``full | quantized | delta | delta_q | topk``).
+
+``connect`` returns the right store kind for the URI: a
+``ShardedWeightStore`` for ``shard...+`` URIs, else a ``WeightStore``.
 """
 from __future__ import annotations
 
 from typing import Any
 
+from repro_torch.core.gossip import ShardedFolders, ShardedWeightStore
 from repro_torch.core.store import WeightStore, make_folder
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.transport import (
@@ -52,15 +60,17 @@ def connect(
     keep_history: bool = False,
     compress: str = "none",
     **store_kwargs: Any,
-) -> WeightStore:
+) -> "WeightStore | ShardedWeightStore":
     """Open a weight store behind ``uri`` (see the stage table above).
 
     ``transport`` is a pipeline spec or legacy name, normalized here so a bad
     spec fails before any folder is created; ``families`` is sugar for
     ``transport="family(...)"``. ``prefetch`` starts background cache warming
-    (``True``, an interval in seconds, or ``(interval, node_id)``);
-    ``telemetry`` attaches a ``Telemetry`` (``True`` creates one, reachable as
-    ``store.telemetry``). The rest is forwarded to ``WeightStore``.
+    (``True``, an interval in seconds, or ``(interval, node_id)``: the tuple
+    form is required for sharded stores, whose prefetch is scoped to one
+    node's home group); ``telemetry`` attaches a ``Telemetry`` (``True``
+    creates one, reachable as ``store.telemetry``). The rest is forwarded to
+    the store (``rebase_every``, ``topk_fraction``, ...).
     """
     parse_folder_uri(uri)  # validate the whole URI up front (clear errors)
     if families is not None:
@@ -72,8 +82,10 @@ def connect(
     elif quantized:
         transport = normalize_transport(None, quantized=True)
 
-    store = WeightStore(make_folder(uri), transport=transport, keep_history=keep_history,
-                        compress=compress, **store_kwargs)
+    folder = make_folder(uri)
+    kind = ShardedWeightStore if isinstance(folder, ShardedFolders) else WeightStore
+    store = kind(folder, transport=transport, keep_history=keep_history, compress=compress,
+                 **store_kwargs)
     if telemetry:
         tel = telemetry if isinstance(telemetry, Telemetry) else Telemetry(enabled=True)
         store.attach_telemetry(tel)
@@ -82,6 +94,10 @@ def connect(
         if isinstance(prefetch, tuple):
             interval, node_id = prefetch
             store.start_prefetch(float(interval), exclude=node_id)
+        elif isinstance(folder, ShardedFolders):
+            raise ValueError(
+                "sharded stores scope prefetch to one node's home group: "
+                "pass prefetch=(interval, node_id)")
         else:
             store.start_prefetch(0.1 if prefetch is True else float(prefetch))
     return store

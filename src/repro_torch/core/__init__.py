@@ -11,16 +11,33 @@ Public API mirrors the paper's usage snippet:
     trainer.fit(..., callbacks=[callback])
 """
 from .callback import Callback, FederatedCallback
+from .gossip import (
+    GossipHierarchy,
+    ShardedFolders,
+    ShardedWeightStore,
+    balanced_groups,
+    default_group_of,
+    read_roster,
+    write_roster,
+)
 from .node import AsyncFederatedNode, FederationTimeout, SyncFederatedNode
 from .partition import partition_dataset, partition_sequence_dataset, skewed_assignment
 from .serialize import (
     FlatUpdate,
+    GroupSummary,
     NodeUpdate,
+    SuperSummary,
+    deserialize_group_summary,
     deserialize_obs_blob,
+    deserialize_super_summary,
     deserialize_update,
+    deserialize_update_delta,
     peek_meta,
+    serialize_group_summary,
     serialize_obs_blob,
+    serialize_super_summary,
     serialize_update,
+    serialize_update_delta,
 )
 from .simulation import ClientResult, run_threaded, simulate_timeline, straggler_speedup
 from .store import (
@@ -64,6 +81,11 @@ __all__ = [
     "Callback", "FederatedCallback",
     "NodeUpdate", "FlatUpdate", "serialize_update", "deserialize_update", "peek_meta",
     "serialize_obs_blob", "deserialize_obs_blob",
+    "serialize_update_delta", "deserialize_update_delta",
+    "GroupSummary", "SuperSummary", "serialize_group_summary", "deserialize_group_summary",
+    "serialize_super_summary", "deserialize_super_summary",
+    "GossipHierarchy", "ShardedFolders", "ShardedWeightStore", "default_group_of",
+    "balanced_groups", "read_roster", "write_roster",
     "LeafSpec", "FamilyView", "FAMILY_PATTERNS", "register_family", "resolve_family_patterns",
     "SharedFolder", "InMemoryFolder", "DiskFolder", "S3Folder", "CachingFolder",
     "RetryFolder", "WeightStore", "TRANSPORTS", "make_folder",

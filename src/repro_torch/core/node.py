@@ -16,9 +16,6 @@ Nodes are transparent to the flat-vector hot path: the store pulls
 ``FlatUpdate``s (contiguous host f32 vectors sharing an interned
 ``LeafSpec``), the strategy stacks and aggregates them on its device, and the
 tree the trainer receives back views the strategy's device buffer.
-
-Sharded gossip stores (``ShardedFolders``) come with the federation plane
-(slice 3); this module imports nothing of them.
 """
 from __future__ import annotations
 
@@ -31,6 +28,7 @@ import torch
 
 from repro_torch.logs import get_logger
 
+from .gossip import ShardedFolders, ShardedWeightStore
 from .serialize import NodeUpdate
 from .store import SharedFolder, WeightStore
 from .strategies import FedAvg, PartialFedAvg, Strategy
@@ -50,8 +48,8 @@ class _BaseNode:
         self,
         *,
         strategy: Strategy | None = None,
-        shared_folder: SharedFolder | None = None,
-        store: WeightStore | None = None,
+        shared_folder: SharedFolder | ShardedFolders | None = None,
+        store: WeightStore | ShardedWeightStore | None = None,
         node_id: str | None = None,
         transport: str | None = None,
         families=None,
@@ -92,11 +90,10 @@ class _BaseNode:
         if store is None:
             if shared_folder is None:
                 raise ValueError("need shared_folder or store")
-            if not isinstance(shared_folder, SharedFolder):
-                raise NotImplementedError(
-                    f"{type(shared_folder).__name__} is not a SharedFolder; sharded "
-                    "gossip folders are not ported yet (ROADMAP Queue 1 item 14, slice 3)")
-            store = WeightStore(shared_folder, transport=transport)
+            if isinstance(shared_folder, ShardedFolders):
+                store = ShardedWeightStore(shared_folder, transport=transport)
+            else:
+                store = WeightStore(shared_folder, transport=transport)
         elif transport is not None:
             # store.transport is the canonical pipeline spec; compare specs,
             # not raw strings, so "delta_q" matches a "delta(q)" store. A
@@ -173,7 +170,10 @@ class _BaseNode:
         depths, residual norms, prefetch activity) — in one shape regardless
         of store kind, so transport experiments read a single dict per
         node."""
-        return self.store.transport_stats()
+        store = self.store
+        if hasattr(store, "cache_stats"):  # ShardedWeightStore aggregates
+            return store.cache_stats()
+        return store.transport_stats()
 
     def _finish_step(self, aggregated: PyTree | None) -> PyTree | None:
         """Every return path of update_parameters funnels through here so the

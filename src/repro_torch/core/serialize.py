@@ -10,10 +10,9 @@ Everything here is host-side numpy; tensor leaves are copied to the host on
 the way out. bf16/fp8 leaves ship as f32, as the reference ships them, and
 decode to CPU tensors of their own dtype: the port needs no ``ml_dtypes``.
 
-The port carries the full and quantized update families, the flat decode, the
-npz/zstd envelopes and the strategy-state and obs blobs. The delta, top-k,
-group-summary, super-summary and fleet families come with the federation
-plane (ROADMAP Queue 1, slice 3) and raise ``NotImplementedError``.
+The port carries every family of the reference: full, quantized and delta
+updates (the flat decode included), group and super summaries, strategy
+state, fleet-control and obs blobs, in the npz/zstd envelopes.
 """
 from __future__ import annotations
 
@@ -454,30 +453,370 @@ def deserialize_update_quantized(blob: bytes) -> NodeUpdate:
     return _update_from_meta(params, meta)
 
 
-# --- families that come with the federation plane (slice 3) -------------------
+# --- group summaries (sharded gossip store) ---------------------------------
+#
+# A group's deposit in the gossip layer: the example-weighted mean of the
+# group's latest params, the total examples behind it (its weight as a
+# pseudo-peer) and a version vector (its freshness). ``peek_meta`` dispatches
+# on ``summary_of`` as it does on ``delta_of`` / ``quantized``.
 
 
-def _deferred(name: str, what: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: {what} is not ported yet (ROADMAP Queue 1, slice 3: "
-            "the federation plane)")
+@dataclass
+class GroupSummary:
+    """One group's aggregate deposit in the gossip layer."""
 
-    fn.__name__ = name
-    return fn
+    params: PyTree              # example-weighted mean of the group's latest params
+    num_examples: int           # total examples behind that mean
+    origin: int                 # group index that produced the summary
+    version: int                # monotone freshness scalar: sum of (counter + 1)
+    version_vector: dict        # node_id -> latest counter folded into the mean
+    timestamp: float = 0.0      # newest member timestamp (staleness strategies)
 
 
-_DELTA = "the delta / top-k wire family (item 13)"
-_GOSSIP = "the gossip summary family (item 14)"
-_FLEET = "the fleet-control family (item 15)"
-serialize_update_delta = _deferred("serialize_update_delta", _DELTA)
-serialize_update_delta_from_flat = _deferred("serialize_update_delta_from_flat", _DELTA)
-deserialize_update_delta = _deferred("deserialize_update_delta", _DELTA)
-deserialize_update_delta_flat = _deferred("deserialize_update_delta_flat", _DELTA)
-apply_update_delta_flat = _deferred("apply_update_delta_flat", _DELTA)
-serialize_group_summary = _deferred("serialize_group_summary", _GOSSIP)
-deserialize_group_summary = _deferred("deserialize_group_summary", _GOSSIP)
-serialize_super_summary = _deferred("serialize_super_summary", _GOSSIP)
-deserialize_super_summary = _deferred("deserialize_super_summary", _GOSSIP)
-serialize_fleet_blob = _deferred("serialize_fleet_blob", _FLEET)
-deserialize_fleet_blob = _deferred("deserialize_fleet_blob", _FLEET)
+def serialize_group_summary(summary: GroupSummary, *, compress: str = "none") -> bytes:
+    return serialize_params(
+        summary.params,
+        compress=compress,
+        meta={
+            "summary_of": int(summary.origin),
+            "num_examples": int(summary.num_examples),
+            "version": int(summary.version),
+            "version_vector": {str(k): int(v) for k, v in summary.version_vector.items()},
+            "timestamp": float(summary.timestamp),
+        },
+    )
+
+
+def deserialize_group_summary(blob: bytes) -> GroupSummary:
+    params, meta = deserialize_params(blob)
+    if "summary_of" not in meta:
+        raise ValueError("not a group-summary blob")
+    return GroupSummary(
+        params=params,
+        num_examples=int(meta["num_examples"]),
+        origin=int(meta["summary_of"]),
+        version=int(meta["version"]),
+        version_vector={str(k): int(v) for k, v in meta["version_vector"].items()},
+        timestamp=float(meta.get("timestamp", 0.0)),
+    )
+
+
+# --- super-summaries (hierarchical gossip tiers) ------------------------------
+#
+# A level-k aggregator's fold of one ring segment: the example-weighted mean of
+# the segment's child summaries, per-child freshness (``child_versions``), and
+# per-child counter maxima as its version vector (O(branching) metadata at any
+# depth). Dispatches on ``super_summary_of``.
+
+
+@dataclass
+class SuperSummary:
+    """One ring segment's folded deposit at tier ``level`` of the summary tree."""
+
+    params: PyTree              # example-weighted mean of the child summaries
+    num_examples: int           # total examples behind that mean
+    origin: int                 # segment index at this level
+    level: int                  # tier (>= 1; level-0 deposits are GroupSummary)
+    version: int                # sum of the child version scalars (monotone)
+    child_versions: dict        # child origin key -> version scalar folded in
+    version_vector: dict        # child pseudo-peer id -> its counter maximum
+    timestamp: float = 0.0      # newest child timestamp
+
+
+def serialize_super_summary(summary: SuperSummary, *, compress: str = "none") -> bytes:
+    return serialize_params(
+        summary.params,
+        compress=compress,
+        meta={
+            "super_summary_of": int(summary.origin),
+            "level": int(summary.level),
+            "num_examples": int(summary.num_examples),
+            "version": int(summary.version),
+            "child_versions": {str(k): int(v) for k, v in summary.child_versions.items()},
+            "version_vector": {str(k): int(v) for k, v in summary.version_vector.items()},
+            "timestamp": float(summary.timestamp),
+        },
+    )
+
+
+def deserialize_super_summary(blob: bytes) -> SuperSummary:
+    params, meta = deserialize_params(blob)
+    if "super_summary_of" not in meta:
+        raise ValueError("not a super-summary blob")
+    return SuperSummary(
+        params=params,
+        num_examples=int(meta["num_examples"]),
+        origin=int(meta["super_summary_of"]),
+        level=int(meta["level"]),
+        version=int(meta["version"]),
+        child_versions={str(k): int(v) for k, v in meta["child_versions"].items()},
+        version_vector={str(k): int(v) for k, v in meta["version_vector"].items()},
+        timestamp=float(meta.get("timestamp", 0.0)),
+    )
+
+
+# --- fleet-control blobs (``fleet/...``: rosters, and later leases) ----------
+
+
+def serialize_fleet_blob(kind: str, payload: dict, *, compress: str = "none") -> bytes:
+    """One fleet-control deposit: ``kind`` (roster, spec, claim, ...) plus a
+    JSON-serializable payload, no arrays."""
+    return serialize_params(
+        {}, compress=compress,
+        meta={"fleet_of": str(kind), "payload": dict(payload)},
+    )
+
+
+def deserialize_fleet_blob(blob: bytes) -> tuple[str, dict]:
+    """-> (kind, payload). Raises ValueError on non-fleet blobs."""
+    _params, meta = deserialize_params(blob)
+    if "fleet_of" not in meta:
+        raise ValueError("not a fleet-control blob")
+    return str(meta["fleet_of"]), dict(meta.get("payload") or {})
+
+
+# --- delta payloads against a content-hashed base ---------------------------
+#
+# After a full deposit, a writer ships only the entries that changed against a
+# base blob it also deposited (content-addressed, so readers check they
+# rebuild on the exact bytes the writer diffed against). The sparse encoding
+# stores the NEW values at changed positions, not differences, so
+# reconstruction is bitwise exact.
+
+_DENSE = "d" + _SEP  # per-leaf dense fallback
+_IDX = "i" + _SEP    # changed flat indices
+_VAL = "v" + _SEP    # new values at those indices
+_SCALE = "c" + _SEP  # int8 scale when the delta values are quantized
+
+
+class DeltaBaseMismatch(RuntimeError):
+    """The base blob a delta references is missing or has different content."""
+
+
+def _flat_wire(params: PyTree) -> dict[str, tuple[np.ndarray, str | None]]:
+    """Wire key -> (on-wire host array, dtype name to restore or None)."""
+    return {path_str(path).replace("/", _SEP): _wire_leaf(leaf)
+            for path, leaf in tree_flatten_with_path(params)[0]}
+
+
+def _wire_dtype(name: str) -> tuple[np.dtype, str | None]:
+    """On-wire numpy dtype of a spec dtype name, and the name to restore."""
+    if name in NARROW_FLOATS:
+        return np.dtype(np.float32), name
+    return np.dtype(name), None
+
+
+def canonicalize_params(params: PyTree) -> PyTree:
+    """The nested-dict tree a reader reconstructs after a serialize round-trip
+    (wire dtype conversion included), computed without the npz I/O. A delta
+    writer diffs later updates against this, so its view of the base is
+    bitwise identical to every reader's."""
+    wire = _flat_wire(params)
+    dtypes = {k: dt for k, (_, dt) in wire.items() if dt}
+    return _rebuild_tree(list(wire), dtypes, lambda key: np.array(wire[key][0], copy=True))
+
+
+def delta_density(params: PyTree, base_params: PyTree) -> float:
+    """Fraction of entries that differ from the base (1.0 on any structural
+    mismatch). A diagnostic: the codecs decide delta-vs-rebase by the encoded
+    size against the tree's byte size."""
+    new, base = _flat_wire(params), _flat_wire(base_params)
+    if set(new) != set(base):
+        return 1.0
+    changed = total = 0
+    for key, (a, _) in new.items():
+        b = base[key][0]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return 1.0
+        total += a.size
+        changed += int(np.count_nonzero(a.reshape(-1) != b.reshape(-1)))
+    return changed / max(total, 1)
+
+
+def apply_update_delta_flat(blob: bytes, spec: LeafSpec,
+                            flat: np.ndarray) -> dict[str, Any]:
+    """Apply a delta blob's entries *in place* on ``flat`` (which must hold
+    the referenced base state); returns the blob's meta. In place, a chain walk
+    rebuilds K links with one base copy. On a raised exception ``flat`` may be
+    partly written: callers discard it (the exceptions signal a structure or
+    dtype mismatch, never a transient)."""
+    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
+        meta = _load_meta(data)
+        if "delta_of" not in meta:
+            raise ValueError("not a delta blob")
+        order = meta.pop("__order__")
+        meta.pop("__dtypes__", None)
+        wire = _wire_keys(spec)
+        if len(order) != len(wire) or set(order) != set(wire):
+            raise ValueError("delta structure does not match the base spec")
+        files = set(data.files)
+        index, offsets, sizes = spec.index, spec.offsets, spec.sizes
+        for key in order:
+            i = index[key.replace(_SEP, "/")]
+            o, n = offsets[i], sizes[i]
+            if _DENSE + key in files:
+                arr = data[_DENSE + key]
+                if arr.size != n:
+                    raise ValueError(f"dense leaf {key!r}: {arr.size} vs {n}")
+                if _SCALE + key in files:  # dense int8-quantized leaf
+                    flat[o:o + n] = dequantize_leaf(arr.reshape(-1), data[_SCALE + key])
+                    continue
+                if arr.dtype.kind != "f" or arr.dtype.itemsize > 4:
+                    raise FlatDecodeUnsupported(
+                        f"leaf {key!r} has wire dtype {arr.dtype} (not f32-exact)")
+                flat[o:o + n] = arr.reshape(-1)
+                continue
+            idx = data[_IDX + key]
+            vals = data[_VAL + key]
+            if _SCALE + key in files:
+                vals = dequantize_leaf(vals, data[_SCALE + key])
+            elif vals.size and (vals.dtype.kind != "f" or vals.dtype.itemsize > 4):
+                raise FlatDecodeUnsupported(
+                    f"leaf {key!r} delta values have wire dtype {vals.dtype}")
+            flat[o + idx] = vals
+    return meta
+
+
+def deserialize_update_delta_flat(blob: bytes, spec: LeafSpec,
+                                  base_flat: np.ndarray) -> FlatUpdate:
+    """A FlatUpdate from a delta blob, applied on a copy of the flat base
+    vector. Raises ValueError when the blob's structure does not match
+    ``spec`` (the caller falls back to the tree path)."""
+    flat = np.array(base_flat, dtype=np.float32, copy=True)
+    meta = apply_update_delta_flat(blob, spec, flat)
+    return flat_update_from_meta(spec, flat, meta)
+
+
+def serialize_update_delta_from_flat(
+    update: NodeUpdate,
+    spec: LeafSpec,
+    flat: np.ndarray,
+    base_flat: np.ndarray,
+    base_hash: str,
+    *,
+    changed: np.ndarray | None = None,
+    density_threshold: float = 0.5,
+    compress: str = "none",
+    quantize_leaves: "frozenset[int] | set[int] | tuple[int, ...]" = (),
+    extra_meta: dict[str, Any] | None = None,
+) -> bytes:
+    """Encode host ``flat`` as a sparse per-leaf diff against ``base_flat``, in
+    the exact wire format of ``serialize_update_delta``, so a reader needs no
+    knowledge of how the writer chose the changed set. ``changed`` (sorted
+    flat indices that differ from the base) may be passed when known;
+    ``quantize_leaves`` names leaf indices whose changed values ship int8
+    (per-segment scale under ``c|``); ``extra_meta`` adds writer meta keys."""
+    flat = np.asarray(flat, np.float32).reshape(-1)
+    if flat.size != spec.num_params:
+        raise ValueError(f"{flat.size} params vs spec's {spec.num_params}")
+    if changed is None:
+        changed = np.flatnonzero(flat != np.asarray(base_flat).reshape(-1))
+    arrays: dict[str, np.ndarray] = {}
+    order: list[str] = []
+    dtypes: dict[str, str] = {}
+    keys = _wire_keys(spec)
+    # one vectorized split of the changed set into per-leaf segments
+    cuts = np.searchsorted(changed, spec.bounds)
+    for i, key in enumerate(keys):
+        order.append(key)
+        wire_dt, restored = _wire_dtype(spec.dtypes[i])
+        if restored:
+            dtypes[key] = restored
+        o, n = spec.offsets[i], spec.sizes[i]
+        seg = changed[cuts[i]:cuts[i + 1]]
+        if i in quantize_leaves and seg.size:
+            if seg.size > density_threshold * n:
+                # dense quantized: an int8 leaf plus its scale (1 byte an
+                # entry, where the sparse form pays 5)
+                q, scale = quantize_leaf(flat[o:o + n])
+                arrays[_DENSE + key] = q.reshape(spec.shapes[i])
+                arrays[_SCALE + key] = np.asarray(scale)
+                continue
+            arrays[_IDX + key] = (seg - o).astype(np.int64 if n > 2**31 else np.int32)
+            q, scale = quantize_leaf(flat[seg])
+            arrays[_VAL + key] = q
+            arrays[_SCALE + key] = np.asarray(scale)
+            continue
+        if seg.size > density_threshold * n:
+            arrays[_DENSE + key] = np.asarray(flat[o:o + n], dtype=wire_dt).reshape(spec.shapes[i])
+            continue
+        arrays[_IDX + key] = (seg - o).astype(np.int64 if n > 2**31 else np.int32)
+        arrays[_VAL + key] = np.asarray(flat[seg], dtype=wire_dt)
+    meta = _update_meta(update, delta_of=base_hash, **(extra_meta or {}))
+    return _pack_npz(arrays, order, dtypes, meta, compress=compress)
+
+
+def serialize_update_delta(
+    update: NodeUpdate,
+    base_params: PyTree,
+    base_hash: str,
+    *,
+    quantize: bool = False,
+    density_threshold: float = 0.5,
+    compress: str = "none",
+) -> bytes:
+    """Encode ``update`` as a sparse per-leaf diff against ``base_params``
+    (whose full blob hashes to ``base_hash``). Leaves denser than
+    ``density_threshold`` ship dense; ``quantize`` ships changed values int8
+    (lossy)."""
+    new, base = _flat_wire(update.params), _flat_wire(base_params)
+    if set(new) != set(base):
+        raise ValueError("delta requires identical tree structure with the base")
+    arrays: dict[str, np.ndarray] = {}
+    order: list[str] = []
+    dtypes: dict[str, str] = {}
+    for key, (a, dt) in new.items():
+        order.append(key)
+        if dt:
+            dtypes[key] = dt
+        b = base[key][0]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            arrays[_DENSE + key] = a
+            continue
+        af, bf = a.reshape(-1), b.reshape(-1)
+        idx = np.flatnonzero(af != bf)
+        if idx.size > density_threshold * af.size:
+            arrays[_DENSE + key] = a
+            continue
+        arrays[_IDX + key] = idx.astype(np.int64 if af.size > 2**31 else np.int32)
+        vals = af[idx]
+        if quantize and vals.dtype.kind == "f" and vals.size:
+            q, scale = quantize_leaf(vals)
+            arrays[_VAL + key] = q
+            arrays[_SCALE + key] = np.asarray(scale)
+        else:
+            arrays[_VAL + key] = vals
+    return _pack_npz(arrays, order, dtypes, _update_meta(update, delta_of=base_hash),
+                     compress=compress)
+
+
+def deserialize_update_delta(blob: bytes, base_params: PyTree) -> NodeUpdate:
+    """A full NodeUpdate from a delta blob and the base params it was diffed
+    against (the caller matches ``delta_of`` to the base blob's hash)."""
+    base = _flat_wire(base_params)
+    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
+        meta = _load_meta(data)
+        if "delta_of" not in meta:
+            raise ValueError("not a delta blob")
+        order = meta.pop("__order__")
+        dtypes = meta.pop("__dtypes__", {})
+
+        def reconstruct(key: str) -> np.ndarray:
+            if _DENSE + key in data.files:
+                arr = data[_DENSE + key]
+                if _SCALE + key in data.files:  # dense int8-quantized leaf
+                    arr = dequantize_leaf(arr, data[_SCALE + key])
+                return arr
+            if key not in base:
+                raise DeltaBaseMismatch(f"base is missing leaf {key!r}")
+            b = base[key][0]
+            flat = np.array(b, copy=True).reshape(-1)
+            idx = data[_IDX + key]
+            vals = data[_VAL + key]
+            if _SCALE + key in data.files:
+                vals = dequantize_leaf(vals, data[_SCALE + key])
+            flat[idx] = vals.astype(flat.dtype, copy=False)
+            return flat.reshape(b.shape)
+
+        tree = _rebuild_tree(order, dtypes, reconstruct)
+    return _update_from_meta(tree, meta)

@@ -10,7 +10,7 @@
   wall-clock per node = Σ its own epochs.
 
 ``run_multiprocess`` and ``ProcessSupervisor`` come with the federation plane
-(ROADMAP Queue 1, slice 3); they will have to use the spawn start method,
+(ROADMAP Queue 1 item 13a); they will have to use the spawn start method,
 because CUDA does not survive a fork.
 """
 from __future__ import annotations

@@ -10,7 +10,7 @@ Backends:
     python-multithreading simulation setup.
   * ``DiskFolder``    — a filesystem directory with atomic writes; this is the
     production backend (point it at an NFS/gcsfuse/s3fs mount).
-  * ``S3Folder``      — not ported yet (ROADMAP Queue 1, slice 3); the
+  * ``S3Folder``      — not ported yet (ROADMAP Queue 1 item 13a, slice 3); the
     class exists so the public API matches and raises ``NotImplementedError``.
   * ``CachingFolder`` — read-through wrapper over any backend: skips
     re-downloading blobs whose per-key ``version`` metadata is unchanged
@@ -318,11 +318,11 @@ class DiskFolder(SharedFolder):
 
 
 class S3Folder(SharedFolder):
-    """S3-backed folder: not ported yet (ROADMAP Queue 1, slice 3)."""
+    """S3-backed folder: not ported yet (ROADMAP Queue 1 item 13a, slice 3)."""
 
     def __new__(cls, directory: str):
         raise NotImplementedError(
-            "S3Folder is not ported yet (ROADMAP Queue 1, slice 3); use a local "
+            "S3Folder is not ported yet (ROADMAP Queue 1 item 13a, slice 3); use a local "
             "or mounted path, or memory://")
 
 
@@ -520,11 +520,9 @@ class WeightStore:
     The wire path is a ``TransportPipeline`` (see ``transport.py``) selected
     by ``transport=`` — a legacy name or a pipeline spec string such as::
 
-        "full|zstd"                # full blobs in zstd frames
+        "delta(chain=4)|zstd"      # delta-against-delta chains + zstd frames
+        "topk(adaptive)"           # error-feedback top-k, k ∝ residual norm
         "quantized|npz"            # int8 blobs inside deflate envelopes
-
-    (the delta, topk and family policies raise ``NotImplementedError`` until
-    the federation plane is ported, slice 3).
 
     ``compress=`` ("none" / "npz" / "zstd") appends the envelope stage for
     callers using legacy names. Readers are policy-oblivious: blobs are
@@ -551,6 +549,9 @@ class WeightStore:
         keep_history: bool = False,
         transport: str | None = None,
         families=None,
+        rebase_every: int = 10,
+        delta_density_threshold: float = 0.5,
+        topk_fraction: float = 0.01,
         compress: str = "none",
         decode_cache_entries: int = 64,
         prefetch_interval: float | None = None,
@@ -565,7 +566,13 @@ class WeightStore:
             transport = family_transport_spec(families)
         self.folder = folder
         self.pipeline = TransportPipeline.from_spec(
-            transport, quantized=quantized, compress=compress)
+            transport,
+            quantized=quantized,
+            compress=compress,
+            rebase_every=rebase_every,
+            delta_density_threshold=delta_density_threshold,
+            topk_fraction=topk_fraction,
+        )
         self.transport = self.pipeline.spec
         self.keep_history = keep_history
         self._ctx = StoreContext(folder, self.pipeline.stats)
@@ -587,6 +594,30 @@ class WeightStore:
     @property
     def compress(self) -> str:
         return self.pipeline.compress
+
+    @property
+    def rebase_every(self) -> int:
+        return self.pipeline.policy.rebase_every
+
+    @rebase_every.setter
+    def rebase_every(self, value: int) -> None:
+        self.pipeline.policy.rebase_every = value
+
+    @property
+    def delta_density_threshold(self) -> float:
+        return self.pipeline.policy.density_threshold
+
+    @delta_density_threshold.setter
+    def delta_density_threshold(self, value: float) -> None:
+        self.pipeline.policy.density_threshold = value
+
+    @property
+    def topk_fraction(self) -> float:
+        return self.pipeline.policy.topk_fraction
+
+    @topk_fraction.setter
+    def topk_fraction(self, value: float) -> None:
+        self.pipeline.policy.topk_fraction = value
 
     @property
     def bytes_written(self) -> int:
@@ -685,9 +716,9 @@ class WeightStore:
 
     # -- state hash fast path -------------------------------------------------
     def state_hash(self, exclude_node: str | None = None) -> str:
-        # A node's deposits span latest/, base/ + chain/ (written by repro
-        # nodes' delta transports) and history/; all of them must be excluded
-        # or the node's own push would defeat its own skip check. state/ blobs are
+        # A node's deposits span latest/, base/ + chain/ (delta rebases and
+        # chain links) and history/; all of them must be excluded or the
+        # node's own push would defeat its own skip check. state/ blobs are
         # optimizer recovery data and fleet/ blobs are launcher control
         # traffic (specs, claims, heartbeats, soak results) and obs/ blobs
         # are telemetry snapshots — none is federation signal, so all are
@@ -712,7 +743,10 @@ class WeightStore:
             key[len("latest/"):] for key in self.folder.keys() if key.startswith("latest/")
         )
 
-    def _decode(self, blob: bytes, node_id: str) -> NodeUpdate:
+    def _decode(self, blob: bytes, node_id: str) -> NodeUpdate | None:
+        """Decode a self-describing blob; None when a delta's reference chain
+        cannot be resolved yet (caller refetches — the writer is mid-rebase
+        or mid-GC)."""
         return self.pipeline.decode(blob, node_id, self._ctx)
 
     def _pull_latest(self, node_id: str) -> NodeUpdate | None:
@@ -727,14 +761,18 @@ class WeightStore:
             if hit is not None and hit[0] == v:
                 stats.incr("decode_hits")
                 return hit[1]
-        blob = self._ctx.get(key)
-        if blob is None:
-            return None
-        update = self._decode(blob, node_id)
-        stats.incr("decode_misses")
-        if v is not None:
-            self._decoded_latest.put(key, (v, update))
-        return update
+        for _ in range(3):
+            blob = self._ctx.get(key)
+            if blob is None:
+                return None
+            update = self._decode(blob, node_id)
+            if update is not None:
+                stats.incr("decode_misses")
+                if v is not None:
+                    self._decoded_latest.put(key, (v, update))
+                return update
+            time.sleep(0.01)  # writer mid-rebase; refetch latest + bases
+        return None
 
     def pull(self, exclude: str | None = None) -> list[NodeUpdate]:
         """Latest update per node (optionally excluding the caller's own)."""
@@ -767,7 +805,7 @@ class WeightStore:
             blob = self._ctx.get(key)
             if blob is not None:
                 out.append(self._decode(blob, node_id))
-        return out
+        return [u for u in out if u is not None]
 
     # -- background prefetch --------------------------------------------------
     def warm_cache(self, exclude: str | None = None) -> int:
@@ -838,9 +876,12 @@ def make_folder(uri: str):
     ``transport.parse_folder_uri`` owns the parse. Wrappers apply
     outermost-first: 'cache+retry+<base>' caches over the retrying folder.
 
-    The sharded (gossip) URIs and ``s3://`` are not ported yet (ROADMAP
-    Queue 1, slice 3) and raise ``NotImplementedError`` once the URI is
-    known to be well formed.
+    A 'shard<G>+<uri>' prefix returns a ``ShardedFolders`` handle — G
+    per-group folders of the inner kind (e.g. 'shard16+/mnt/shared/exp1') —
+    which the federated nodes turn into a gossip-sharded
+    ``ShardedWeightStore``; 'shard<G>x<L>+<uri>' federates the G groups
+    through an L-level summary tree. ``s3://`` is not ported yet (ROADMAP
+    Queue 1 item 13a) and raises ``NotImplementedError``.
 
     .. note:: Most callers want :func:`repro_torch.api.connect`, which wraps
        this factory and returns a ready store for any URI.
@@ -854,9 +895,9 @@ def make_folder(uri: str):
             if any(n == "shard" for n, _ in wrappers[1:]):
                 raise ValueError(
                     f"shard<G>+ may appear only once in {uri!r}")
-            raise NotImplementedError(
-                f"sharded gossip stores ({uri!r}) are not ported yet "
-                "(ROADMAP Queue 1 item 14, slice 3)")
+            from .gossip import ShardedFolders  # circular-import guard
+
+            return ShardedFolders.from_uri(uri)
     if base.startswith("memory://"):
         name = base[len("memory://"):].strip("/")
         if name:

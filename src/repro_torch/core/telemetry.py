@@ -349,28 +349,34 @@ class Telemetry:
 def collect_obs(store_uri_or_folder: Any) -> dict[str, list[dict[str, Any]]]:
     """Gather every ``obs/`` payload in a store, node → payloads by seq.
 
-    Accepts a ``make_folder`` URI or a ``SharedFolder`` (sharded folders
-    arrive with the gossip store, slice 3). Pure reads — never writes, never
-    aggregates weights.
+    Accepts a ``make_folder`` URI, a ``SharedFolder``, or a ``ShardedFolders``
+    (all groups scanned). Pure reads — never writes, never aggregates weights.
     """
+    from .gossip import ShardedFolders
     from .serialize import deserialize_obs_blob
     from .store import make_folder
 
     folder = store_uri_or_folder
     if isinstance(folder, str):
         folder = make_folder(folder)
+    folders = (
+        [folder.group_folder(g) for g in range(folder.num_groups)]
+        if isinstance(folder, ShardedFolders)
+        else [folder]
+    )
     by_node: dict[str, list[tuple[int, dict[str, Any]]]] = {}
-    for key in folder.keys():
-        if not key.startswith("obs/"):
-            continue
-        blob = folder.get(key)
-        if blob is None:
-            continue
-        try:
-            node_id, seq, payload = deserialize_obs_blob(blob)
-        except (ValueError, KeyError):
-            continue
-        by_node.setdefault(node_id, []).append((seq, payload))
+    for f in folders:
+        for key in f.keys():
+            if not key.startswith("obs/"):
+                continue
+            blob = f.get(key)
+            if blob is None:
+                continue
+            try:
+                node_id, seq, payload = deserialize_obs_blob(blob)
+            except (ValueError, KeyError):
+                continue
+            by_node.setdefault(node_id, []).append((seq, payload))
     return {
         node: [payload for _seq, payload in sorted(pairs, key=lambda p: p[0])]
         for node, pairs in sorted(by_node.items())

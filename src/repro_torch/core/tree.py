@@ -390,3 +390,41 @@ def tree_to_numpy(tree: PyTree) -> PyTree:
     """Device→host copy; the wire and the store live on the host. Leaves
     become numpy arrays, bf16/fp8 leaves CPU tensors (``as_host``)."""
     return tree_map(as_host, tree)
+
+
+def tree_size_bytes(tree: PyTree) -> int:
+    """Bytes of the tree's leaves in their own dtypes (a bf16 leaf counts 2
+    bytes an entry, as the reference counts it, though it ships as f32)."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        else:
+            arr = np.asarray(leaf)
+            total += arr.size * arr.dtype.itemsize
+    return total
+
+
+def tree_weighted_sum(trees: Sequence[PyTree], weights: Sequence[float]) -> PyTree:
+    """sum_i weights[i] * trees[i], leafwise, in the reference's order (numpy
+    or tensor leaves; a leaf keeps its kind and dtype)."""
+    if len(trees) != len(weights):
+        raise ValueError(f"{len(trees)} trees vs {len(weights)} weights")
+    if not trees:
+        raise ValueError("empty aggregation")
+
+    def _leaf(*leaves):
+        acc = leaves[0] * weights[0]
+        for leaf, w in zip(leaves[1:], weights[1:]):
+            acc = acc + leaf * w
+        return acc
+
+    return tree_map(_leaf, *trees)
+
+
+def tree_weighted_mean(trees: Sequence[PyTree], weights: Sequence[float]) -> PyTree:
+    """Weighted mean with weights normalized to sum to 1 (FedAvg, eq. 1)."""
+    total = float(sum(weights))
+    if total <= 0:
+        raise ValueError(f"non-positive total weight {total}")
+    return tree_weighted_sum(trees, [float(w) / total for w in weights])

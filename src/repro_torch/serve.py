@@ -4,10 +4,10 @@ the ``python -m repro.serve`` CLI.
     python -m repro_torch.serve --store /mnt/shared/exp1 --arch mamba2-130m --reduced
 
 Works against any store the port's URI grammar accepts (``memory://`` is only
-useful in-process; sharded stores are not ported yet). The node deploys the
-freshest aggregated update in the store, hot-swaps as trainers push new
-rounds, and serves synthetic greedy-decode batches, printing per-batch
-throughput plus the swap/staleness SLOs. With ``REPRO_OBS`` (or ``--obs``) the
+useful in-process). The node deploys the freshest aggregated update in the
+store, hot-swaps as trainers push new rounds, and serves synthetic
+greedy-decode batches, printing per-batch throughput plus the swap/staleness
+SLOs. With ``REPRO_OBS`` (or ``--obs``) the
 node's ``Telemetry`` also deposits ``obs/`` blobs with its SERVE row. Runs on
 the card unless ``--device cpu`` is given.
 """

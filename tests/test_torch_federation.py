@@ -30,6 +30,7 @@ from repro_torch.core import (
     FederatedCallback,
     FederationTimeout,
     InMemoryFolder,
+    ShardedWeightStore,
     SyncFederatedNode,
     run_threaded,
     simulate_timeline,
@@ -230,8 +231,10 @@ def test_connect_uris():
     assert api.connect("memory://").node_ids() == []
     for uri in ("cache+memory://x", "retry+cache+memory://y"):
         assert api.connect(uri, transport="quantized|npz").transport == "quantized|npz"
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        api.connect("shard4+memory://z")
+    sharded = api.connect("shard4+memory://z", transport="delta")
+    assert isinstance(sharded, ShardedWeightStore) and sharded.num_groups == 4
+    sharded.push(jcore.NodeUpdate(_p(2.0), 1, "n"))
+    assert sharded.node_ids() == ["n"] and sharded.transport == "delta"
     with pytest.raises(NotImplementedError, match="slice 3"):
         api.connect("s3://bucket/prefix")
     with pytest.raises(ValueError):

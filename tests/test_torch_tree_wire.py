@@ -208,23 +208,50 @@ def test_state_and_obs_blobs_cross_packages(tmp_path):
 
 
 def test_delta_blobs_raise_instead_of_decoding_wrongly(tmp_path):
+    """A port reader of a JAX node's delta blob rebuilds the pushed params bit
+    for bit; when the base it names is gone (a writer mid-rebase), the pull
+    skips the node instead of returning stale or wrong parameters."""
     params = {"w": np.random.default_rng(4).normal(size=(200, 100)).astype(np.float32)}
     writer = jstore.WeightStore(jstore.DiskFolder(str(tmp_path)), transport="delta")
     writer.push(JNodeUpdate(params, 1, "jax", counter=0))
     params["w"][0, 0] += 1.0
     writer.push(JNodeUpdate(params, 1, "jax", counter=1))  # a delta blob now
-    assert "delta_of" in jser.peek_meta(tstore.DiskFolder(str(tmp_path)).get("latest/jax"))
-    reader = tstore.WeightStore(tstore.DiskFolder(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="delta"):
-        reader.pull()
+    folder = tstore.DiskFolder(str(tmp_path))
+    assert "delta_of" in jser.peek_meta(folder.get("latest/jax"))
+    (got,) = tstore.WeightStore(folder).pull()
+    assert got.counter == 1 and got.spec.key == JLeafSpec.of(params).key
+    np.testing.assert_array_equal(got.flat, params["w"].reshape(-1))
+    for key in folder.keys():
+        if key.startswith("base/"):
+            folder.delete(key)
+    assert tstore.WeightStore(folder).pull() == []
 
 
 @pytest.mark.parametrize("spec", ["delta", "delta(chain=4)|zstd", "topk(adaptive)",
                                   "family(adapters=full)"])
-def test_deferred_transports_validate_then_raise(spec):
+def test_deferred_transports_validate_then_raise(spec, monkeypatch):
+    """The transports a port store once refused now validate as the reference
+    does, build, and write blobs the reference reads back exactly; a ``zstd``
+    envelope with no zstd module still raises ``ImportError``."""
     assert ttransport.normalize_transport(spec) == jtransport.normalize_transport(spec)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tstore.WeightStore(tstore.InMemoryFolder(), transport=spec)
+    rng = np.random.default_rng(6)
+    params = {"lora_a": rng.normal(size=(300,)).astype(np.float32),
+              "w": rng.normal(size=(400, 50)).astype(np.float32)}
+    folder = tstore.InMemoryFolder()
+    store = tstore.WeightStore(folder, transport=spec)
+    assert store.transport == jtransport.normalize_transport(spec)
+    for counter in range(3):
+        store.push(NodeUpdate({k: torch.from_numpy(v.copy()) for k, v in params.items()},
+                              1, "torch", counter=counter))
+        params["lora_a"][counter] += 1.0
+    assert "delta_of" in jser.peek_meta(jser.maybe_decompress(folder.get("latest/torch")))
+    (got,) = jstore.WeightStore(folder).pull()
+    params["lora_a"][2] -= 1.0  # the last push came before this change
+    np.testing.assert_array_equal(got.flat, JLeafSpec.of(params).flatten(params))
+    if spec.endswith("zstd"):
+        monkeypatch.setattr(tser, "_ZSTD_MODULE", False)
+        with pytest.raises(ImportError):
+            tstore.WeightStore(tstore.InMemoryFolder(), transport=spec)
 
 
 @pytest.mark.parametrize("spec", ["full", "quantized|zstd", "delta_q", "topk|delta",
