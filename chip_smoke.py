@@ -49,7 +49,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Main-path shapes: the two paper models' parameter counts.
 N_MNIST, N_RESNET18 = 421_642, 11_176_970
-CHECK_SHAPES = [(2, N_MNIST), (4, N_RESNET18), (8, 8193), (65, 8192), (200, 4000), (3, 7)]
+# K = 4 at N_RESNET18: the federation phases; K = 8: a fleet_soak node's own + 7 pulled peers
+CHECK_SHAPES = [(2, N_MNIST), (4, N_RESNET18), (8, N_RESNET18), (8, 8193), (65, 8192),
+                (200, 4000), (3, 7)]
 TIME_SHAPES = [(4, N_RESNET18), (16, N_RESNET18)]
 FED_CLIENTS, FED_EPOCHS, FED_STEPS, FED_BATCH = 4, 3, 8, 64
 # The sharded federation: two gossip groups, one transport each (no envelope:
@@ -1116,7 +1118,348 @@ def federation_gossip(dev, root: str, model, init, shards, fk, fed_agg_ref) -> t
              "clients": per_client, "transports": per_group, "checks": checks}, launches)
 
 
+# -- federation_processes / fleet_soak / obs: the control plane on the card ------
+#
+# Children of the process phases start under ``spawn``: each one re-imports
+# this file (its ``main()`` stays behind the ``__main__`` guard) and opens its
+# own CUDA context. Their kernel launches are counted in the children and come
+# back through their results and the store's telemetry counters.
+
+PROC_VICTIM, PROC_PARK_AFTER = 3, 2  # client3 (FedAdam) parks after its 2nd push
+SOAK_NODES, SOAK_ROUNDS, SOAK_WORKERS, SOAK_KILL_GRACE = 8, 6, 2, 90.0
+
+
+class _EpochEnd:
+    """Trainer callback acting at epoch ends only (the duck-typed
+    ``repro_torch.core.Callback``)."""
+
+    def on_train_begin(self, trainer):
+        pass
+
+    def on_train_end(self, trainer):
+        pass
+
+    def on_epoch_begin(self, trainer, epoch):
+        pass
+
+
+class _Checkpoints(_EpochEnd):
+    """A checkpoint of the trainer's params at every epoch end, saved before
+    the federation push, under the push's counter."""
+
+    def __init__(self, directory: str, node):
+        self.directory, self.node = directory, node
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        from repro_torch.checkpoint import save_checkpoint
+
+        save_checkpoint(self.directory, self.node.counter, trainer.params, keep=2)
+
+
+class _Park(_EpochEnd):
+    """The crash victim's callback: after its ``after``-th push it writes
+    ``marker`` and holds still until the parent's SIGKILL lands."""
+
+    def __init__(self, node, after: int, marker: str):
+        self.node, self.after, self.marker = node, after, marker
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        if self.node.num_pushes >= self.after:
+            open(self.marker, "w").close()
+            while True:
+                time.sleep(0.05)
+
+
+def _process_client(i: int, folder: str, root: str, spawn_unix: float,
+                    park_after: int | None = None) -> dict:
+    """One client of ``federation_processes`` in its own OS process: the
+    ``federation`` phase's ResNet-18 client, resuming from its own deposits
+    when it finds them (counter, params and, for FedAdam, m/v)."""
+    from repro_torch.api import connect
+    from repro_torch.core import AsyncFederatedNode, FederatedCallback, Telemetry
+    from repro_torch.core.partition import partition_dataset
+    from repro_torch.core.strategies import FedAdam, FedAvg
+    from repro_torch.data import batch_iterator, make_synthetic_cifar
+    from repro_torch.models.cnn import ResNet
+    from repro_torch.optim import adam
+    from repro_torch.training import Trainer
+
+    name = f"client{i}"
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's threaded clients
+    torch.backends.cudnn.allow_tf32 = False
+    data = make_synthetic_cifar(num_train=FED_CLIENTS * 2048, num_test=1024, seed=0)
+    x, y = partition_dataset(data.x_train, data.y_train, num_nodes=FED_CLIENTS, skew=0.5)[i]
+    model = ResNet()
+    fedadam = i >= FED_CLIENTS // 2
+    strategy = FedAdam(server_lr=1e-3, tau=1e-3, device=dev) if fedadam else FedAvg(device=dev)
+    tel = Telemetry(enabled=True, flush_every=1)
+    node = AsyncFederatedNode(strategy=strategy, store=connect(folder), node_id=name,
+                              telemetry=tel, persist_strategy_state=fedadam)
+    start = node.counter
+    state = strategy.state_dict()
+    restored = None if state is None else {
+        k: float(torch.linalg.vector_norm(v)) for k, v in state.items()}
+    init = node.resumed.params if node.resumed is not None else model.init(0, device=dev)
+    resume_unix = time.time()
+    trainer = Trainer(loss_fn=lambda prm, b, r: model.loss(prm, b), optimizer=adam(1e-3),
+                      init_params=init, seed=i, name=name, telemetry=tel, device=dev)
+    clock = EpochClock()
+    callbacks = [clock, _Checkpoints(os.path.join(root, "ckpt", name), node),
+                 FederatedCallback(node, num_examples_per_epoch=FED_STEPS * FED_BATCH)]
+    if park_after is not None:
+        callbacks.append(_Park(node, park_after, os.path.join(root, f"{name}.parked")))
+    fit_unix = time.time()
+    trainer.fit(lambda e: batch_iterator(x, y, batch_size=FED_BATCH, seed=i, epoch=start + e),
+                epochs=FED_EPOCHS - start, steps_per_epoch=FED_STEPS, callbacks=callbacks)
+    torch.cuda.synchronize()
+    phases = tel.recorder.phase_stats()
+    return {"node": name, "strategy": strategy.name, "resumed": node.resumed is not None,
+            "start_counter": start, "final_counter": node.counter,
+            "restored_state_norms": restored, "aggregations": node.num_aggregations,
+            "losses": [log["loss"] for log in trainer.log], "epoch_s": clock.seconds,
+            "startup_s": fit_unix - spawn_unix, "resume_unix": resume_unix,
+            "aggregate_host_ms_mean": phases.get("aggregate", {}).get("mean_s", 0.0) * 1e3,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def check_deposits(dev, pulled, fk, fed_agg_ref, fed_opt_ref, seed: int) -> dict:
+    """``fed_agg`` and ``fed_opt`` (adam, at ``OPT_HP``) over the stack of a
+    store's pulled deposits in the strategies' layout (rows padded to 32
+    floats), weighted by their example counts, each held against its plain
+    version at rtol = atol = 1e-5. The optimizer state is seeded: x is the
+    first deposit plus noise, m and v as in ``kernel_check``. Raises on a
+    disagreement or a non-finite value; returns the shape and the errors."""
+    k, n = len(pulled), pulled[0].flat.size
+    ld = -(-n // 32) * 32
+    stack = torch.empty(k, ld, device=dev)[:, :n]
+    for row, u in zip(stack, pulled):
+        row.copy_(torch.from_numpy(u.flat))
+    w = torch.tensor([max(1, u.num_examples) for u in pulled], dtype=torch.float32, device=dev)
+    w /= w.sum()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = stack[0] + 0.01 * torch.randn(n, device=dev, generator=gen)
+    m = torch.randn(n, device=dev, generator=gen) * 0.1
+    v = torch.rand(n, device=dev, generator=gen) * 0.01
+    errs = {}
+    for name, got, want in (
+            ("fed_agg", [fk.fed_agg(stack, w)], [fed_agg_ref(stack, w)]),
+            ("fed_opt", fk.fed_opt(stack, w, x, m, v, variant="adam", **OPT_HP),
+             fed_opt_ref(stack, w, x, m, v, variant="adam", **OPT_HP))):
+        errs[name] = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        if not all(torch.isfinite(g).all() and torch.allclose(g, r, rtol=1e-5, atol=1e-5)
+                   for g, r in zip(got, want)):
+            raise AssertionError(f"{name} over the {k} pulled deposits: max abs err "
+                                 f"{errs[name]} over rtol = atol = 1e-5")
+    return {"K": k, "N": n, "ld": ld, "max_abs_err": errs}
+
+
+def _obs_launches(store_uri: str) -> dict:
+    """The kernel launches that the nodes of a store made in their own
+    processes: the ``kernel.*`` counters of each node's newest obs snapshot
+    (a resumed node carries its dead incarnation's count forward)."""
+    from repro_torch.core import collect_obs
+
+    launches = {"fed_agg": 0, "fed_opt": 0}
+    for payloads in collect_obs(store_uri).values():
+        counters = payloads[-1].get("counters") or {}
+        for k in launches:
+            launches[k] += int(counters.get(f"kernel.{k}", 0))
+    return launches
+
+
+def federation_processes(dev, root: str, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
+    """The paper's robustness claim on real processes: the ``federation``
+    phase's four clients as spawned OS processes under a
+    ``ProcessSupervisor`` on one ``DiskFolder``. client3 (FedAdam) parks after
+    its 2nd push, is SIGKILLed on the parked marker and respawned; its new
+    incarnation must resume (counter > 0, params, FedAdam m/v). Raises unless
+    every client finished with finite losses and aggregated, the victim
+    resumed with its state, ``fed_agg`` and ``fed_opt`` launched in the
+    children, client0's newest checkpoint equals its final deposit bit for
+    bit, two checkpoints remain per client, and ``fed_agg`` and ``fed_opt``
+    over the four pulled deposits match their plain versions. Returns
+    (record, launches)."""
+    import numpy as np
+
+    from repro_torch.api import connect
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.core import ProcessCrashed, ProcessSupervisor
+    from repro_torch.core.tree import as_numpy, tree_leaves
+
+    folder = os.path.join(root, "store")
+    names = [f"client{i}" for i in range(FED_CLIENTS)]
+    victim = names[PROC_VICTIM]
+    marker = os.path.join(root, f"{victim}.parked")
+    sup = ProcessSupervisor()
+    t0 = time.perf_counter()
+    kill_unix = None
+    try:
+        for i, name in enumerate(names):
+            sup.spawn(name, _process_client, (i, folder, root, time.time()),
+                      {"park_after": PROC_PARK_AFTER if i == PROC_VICTIM else None})
+        deadline = time.monotonic() + 600.0
+        while sup.unsettled():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"clients still running after 600 s: {sup.unsettled()}")
+            if kill_unix is None and os.path.exists(marker):
+                sup.kill(victim)  # mid-training, parked on its marker
+                kill_unix = time.time()
+            for name in sup.poll():
+                if name == victim and sup.incarnation(victim) == 0 and kill_unix is not None:
+                    sup.spawn(victim, _process_client,
+                              (PROC_VICTIM, folder, root, time.time()))  # no park: resume
+            time.sleep(0.05)
+    finally:
+        sup.shutdown()
+    wall = time.perf_counter() - t0
+    first = sup.history(victim)
+    if kill_unix is None or len(first) != 1 or not isinstance(first[0].error, ProcessCrashed) \
+            or first[0].exitcode != -9:
+        raise AssertionError(f"{victim} was not SIGKILLed once: history {first}")
+    results = {}
+    for name in names:
+        r = sup.result(name)
+        if r.error is not None:
+            raise RuntimeError(f"{name} failed:\n{r.traceback or r.error}")
+        results[name] = r.result
+    for name, res in results.items():
+        if not all(math.isfinite(v) for v in res["losses"]):
+            raise AssertionError(f"{name}: non-finite loss {res['losses']}")
+        if res["aggregations"] < 1 or res["final_counter"] != FED_EPOCHS:
+            raise AssertionError(f"{name}: {res['aggregations']} aggregations, "
+                                 f"counter {res['final_counter']}")
+    launches = _obs_launches(folder)
+    reborn = results[victim]
+    if not (reborn["resumed"] and reborn["start_counter"] == PROC_PARK_AFTER
+            and reborn["restored_state_norms"]
+            and all(math.isfinite(v) and v > 0 for v in reborn["restored_state_norms"].values())):
+        raise AssertionError(f"{victim} did not resume with its FedAdam state: {reborn}")
+    for name in ("fed_agg", "fed_opt"):
+        if launches[name] < 1:
+            raise AssertionError(f"the children never launched {name}: {launches}")
+
+    # Checkpoints: two remain per client; client0's newest is its final deposit.
+    store = connect(folder)
+    for name in names:
+        kept = sorted(os.listdir(os.path.join(root, "ckpt", name)))
+        if len(kept) != 2:
+            raise AssertionError(f"{name}: checkpoints {kept}, want the newest 2")
+    ckpt, meta = load_checkpoint(os.path.join(root, "ckpt", "client0"))
+    deposit = store.pull_node("client0")
+    if meta["step"] != deposit.counter or latest_step(os.path.join(root, "ckpt", "client0")) \
+            != FED_EPOCHS - 1:
+        raise AssertionError(f"client0's newest checkpoint is step {meta['step']}, "
+                             f"its final deposit counter {deposit.counter}")
+    for a, b in zip(tree_leaves(ckpt), tree_leaves(deposit.params)):
+        if not np.array_equal(as_numpy(a), as_numpy(b)):
+            raise AssertionError("client0's newest checkpoint differs from its final deposit")
+
+    pulled = store.pull()
+    if sorted(u.node_id for u in pulled) != names:
+        raise AssertionError(f"store holds {[u.node_id for u in pulled]}, want {names}")
+    pulled_check = check_deposits(dev, pulled, fk, fed_agg_ref, fed_opt_ref, seed=1)
+    clients = [{k: v for k, v in res.items() if k != "resume_unix"} for res in results.values()]
+    return ({"model": "ResNet-18 GN", "params": N_RESNET18, "processes": FED_CLIENTS,
+             "start_method": "spawn", "victim": victim, "park_after_pushes": PROC_PARK_AFTER,
+             "kill_to_resume_s": reborn["resume_unix"] - kill_unix,
+             "victim_first_incarnation_exitcode": first[0].exitcode,
+             "checkpoints_kept": 2, "checkpoint_equals_final_deposit": True,
+             "pulled_check": pulled_check, "wall_s": wall, "launches": launches,
+             "clients": clients}, launches)
+
+
+def fleet_soak(dev, root: str, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
+    """The elastic fleet on the card, through ``run_fleet_local``: 8 soak
+    nodes at ResNet-18's parameter count (each push the 44.7 MB blob of the
+    paper's CIFAR experiment), FedAdam on the card in every node process, two
+    workers, seeded chaos: one node SIGKILLed on its parked heartbeat and
+    restarted, one stalled, one whole worker killed so the survivor adopts
+    its lapsed leases. ``run_fleet_local`` starts the second worker once the
+    first holds its leases, so the seeded victims land the same way in every
+    run. Raises unless the report passes with one crash, one restart, the
+    victim resumed, >= 1 adoption by the survivor, one fleet hash (the
+    survivor's, equal to this process's own reading of the quiesced store),
+    ``fed_opt`` launched in the children, and ``fed_agg`` and ``fed_opt``
+    over the stack of all 8 deposits (a node's own + 7 peers, the widest
+    aggregate of the soak) agreeing with their plain versions. Returns
+    (record, launches)."""
+    from repro_torch.core import ChaosSpec, FleetSpec, run_fleet_local
+    from repro_torch.core.fleet import fleet_state_hash
+
+    spec = FleetSpec(store_uri=os.path.join(root, "soak"), name="fleet_soak",
+                     num_nodes=SOAK_NODES, rounds=SOAK_ROUNDS, strategy="fedadam",
+                     runner="process", param_size=N_RESNET18,
+                     chaos=ChaosSpec(seed=0, kills=1, stalls=1, kill_workers=1,
+                                     kill_grace=SOAK_KILL_GRACE))
+    t0 = time.perf_counter()
+    report = run_fleet_local(spec, num_workers=SOAK_WORKERS, timeout=600.0, device="cuda")
+    wall = time.perf_counter() - t0
+    survivors = sorted(report.workers)
+    own_hash = fleet_state_hash(spec)
+    adopters = {w: sorted(p.get("adoptions") or {}) for w, p in report.workers.items()
+                if p.get("adoptions")}
+    if not (report.passed and report.crashes_injected == 1 and report.restarts == 1
+            and all(report.resumed.get(v) for v in report.victims)
+            and len(report.workers_lost) == 1 and report.stranded
+            and sum(map(len, adopters.values())) >= 1 and set(adopters) <= set(survivors)
+            and set(report.fleet_hashes.values()) == {own_hash}
+            and set(report.fleet_hashes) == set(survivors)):
+        raise AssertionError(f"fleet soak failed acceptance:\n{report.summary()}\n"
+                             f"adopters {adopters}, survivors {survivors}, own hash {own_hash}")
+    pulled = sorted(spec.connect().pull(), key=lambda u: u.node_id)
+    if [u.node_id for u in pulled] != spec.node_ids():
+        raise AssertionError(f"soak store holds {[u.node_id for u in pulled]}")
+    pulled_check = check_deposits(dev, pulled, fk, fed_agg_ref, fed_opt_ref, seed=2)
+    del pulled
+    launches = _obs_launches(spec.store_uri)
+    if launches["fed_opt"] < 1:
+        raise AssertionError(f"the soak's children never launched fed_opt: {launches}")
+    pushes = report.total_pushes
+    return ({"nodes": SOAK_NODES, "rounds": SOAK_ROUNDS, "workers": SOAK_WORKERS,
+             "strategy": spec.strategy, "runner": spec.runner, "param_size": spec.param_size,
+             "lease_ttl": spec.lease_ttl, "chaos": spec.chaos.to_dict(),
+             "victims": report.victims, "stalled": report.stalled,
+             "crashes_injected": report.crashes_injected, "restarts": report.restarts,
+             "resumed": report.resumed, "workers_lost": report.workers_lost,
+             "stranded": report.stranded, "adopted": report.adopted, "adopters": adopters,
+             "recovery_latency_s": report.recovery_latency,
+             "adoption_latency_s": report.adoption_latency,
+             "fleet_state_hash": own_hash, "total_pushes": pushes,
+             "bytes_per_push": report.pipeline_stats.get("bytes_written", 0) / max(1, pushes),
+             "rounds_per_sec": report.rounds_per_sec, "report_wall_s": report.wall_seconds,
+             "pulled_check": pulled_check, "wall_s": wall, "launches": launches,
+             "summary": report.summary()},
+            launches)
+
+
+def obs_phase(store_uri: str) -> dict:
+    """``repro_torch.obs`` over the soak's store: the dashboard and the merged
+    Chrome trace. Raises unless every soak node appears with all its rounds
+    and the trace has spans from every node."""
+    from repro_torch.core import chrome_trace, collect_obs
+    from repro_torch.obs import render_dashboard
+
+    obs = collect_obs(store_uri)
+    lines: list[str] = []
+    rollups = render_dashboard(obs, printer=lines.append)
+    nodes = rollups["nodes"]
+    short = {n: v["rounds"] for n, v in nodes.items() if v["rounds"] < SOAK_ROUNDS}
+    if len(nodes) != SOAK_NODES or short:
+        raise AssertionError(f"obs sees {sorted(nodes)}; rounds short of {SOAK_ROUNDS}: {short}")
+    trace = chrome_trace(obs)
+    names = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"] if e["ph"] == "M"}
+    spans: dict[str, int] = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            spans[names[e["pid"]]] = spans.get(names[e["pid"]], 0) + 1
+    if sorted(spans) != sorted(nodes):
+        raise AssertionError(f"trace spans from {sorted(spans)}, want every node {sorted(nodes)}")
+    return {"dashboard": lines, "rollups": rollups, "trace_spans": spans}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -1313,7 +1656,26 @@ def main() -> None:
     emit("federation_gossip", card=card, nvidia_smi=smi, **record)
     launches = {name: launches[name] + gossip_launches[name] for name in launches}
 
-    # -- 11. serving_consistency / 12. serving: the port's second main path -----
+    # -- 11. federation_processes: the same clients as OS processes, one of
+    #        them SIGKILLed mid-training and respawned --------------------------
+    with tempfile.TemporaryDirectory(prefix="repro_torch_procs_") as root:
+        record, proc_launches = federation_processes(dev, root, fk, fed_agg_ref, fed_opt_ref)
+    emit("federation_processes", card=card, nvidia_smi=smi, **record)
+    deposit_errs = [record["pulled_check"]["max_abs_err"]]
+
+    # -- 12. fleet_soak / 13. obs: the elastic fleet with chaos, then the
+    #        observability reader over its store -----------------------------
+    with tempfile.TemporaryDirectory(prefix="repro_torch_soak_") as root:
+        record, soak_launches = fleet_soak(dev, root, fk, fed_agg_ref, fed_opt_ref)
+        emit("fleet_soak", card=card, nvidia_smi=smi, **record)
+        deposit_errs.append(record["pulled_check"]["max_abs_err"])
+        emit("obs", **obs_phase(os.path.join(root, "soak")))
+    launches = {name: launches[name] + proc_launches[name] + soak_launches[name]
+                for name in launches}
+    for name in ("fed_agg", "fed_opt"):
+        max_err[name] = max(max_err[name], *(e[name] for e in deposit_errs))
+
+    # -- 14. serving_consistency / 15. serving: the port's second main path -----
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -1333,7 +1695,7 @@ def main() -> None:
     profiles = {"flash_attention": record["profile"]["prefill"],
                 "decode_attention": record["profile"]["prefill_and_16_tokens"]}
 
-    # -- 13. serving_ssm_consistency / 14. serving_ssm: Mamba2, the reference's
+    # -- 16. serving_ssm_consistency / 17. serving_ssm: Mamba2, the reference's
     #        serving default, through the same entry points -------------------------
     emit("serving_ssm_consistency", **serving_consistency(
         dev, SSM_ARCH, SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW, ssd_kernel,
@@ -1370,6 +1732,7 @@ def main() -> None:
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"the main path never launched {k['name']}")
+    emit("wall", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -16,11 +16,8 @@ URI the grammar accepts — the port of ``repro.api.connect``.
     cache+        read-through blob cache in front of the base folder
     <base>        ``memory://`` (anonymous, fresh per call) |
                   ``memory://<name>`` (process-global shared registry) |
-                  a local path
+                  ``s3://bucket/prefix`` (needs boto3) | a local path
     ============  =====================================================
-
-``s3://`` parses, but raises ``NotImplementedError`` until ROADMAP Queue 1
-item 13a ports ``S3Folder``.
 
 ``serve(store, arch)`` joins a store read-only as a serving node (the port of
 ``repro.api.serve``, without ``mesh=``).

@@ -20,6 +20,24 @@ from .gossip import (
     read_roster,
     write_roster,
 )
+from .fleet import (
+    ChaosEvent,
+    ChaosSpec,
+    FleetSpec,
+    SoakReport,
+    WorkerReport,
+    assemble_report,
+    chaos_schedule,
+    claim_leases,
+    claim_slots,
+    fleet_state_hash,
+    lease_fresh,
+    read_lease_index,
+    run_fleet_local,
+    run_worker,
+    try_adopt,
+    worker_kill_victims,
+)
 from .node import AsyncFederatedNode, FederationTimeout, SyncFederatedNode
 from .partition import partition_dataset, partition_sequence_dataset, skewed_assignment
 from .serialize import (
@@ -39,7 +57,15 @@ from .serialize import (
     serialize_update,
     serialize_update_delta,
 )
-from .simulation import ClientResult, run_threaded, simulate_timeline, straggler_speedup
+from .simulation import (
+    ClientResult,
+    ProcessCrashed,
+    ProcessSupervisor,
+    run_multiprocess,
+    run_threaded,
+    simulate_timeline,
+    straggler_speedup,
+)
 from .store import (
     TRANSPORTS,
     CachingFolder,
@@ -94,6 +120,11 @@ __all__ = [
     "Strategy", "FedAvg", "FedAvgM", "FedAdam", "FedYogi", "FedAdagrad", "FedAsync",
     "FedBuff", "PartialFedAvg", "STRATEGIES", "get_strategy",
     "skewed_assignment", "partition_dataset", "partition_sequence_dataset",
-    "run_threaded", "ClientResult", "simulate_timeline", "straggler_speedup",
+    "run_threaded", "run_multiprocess", "ClientResult", "ProcessCrashed", "ProcessSupervisor",
+    "simulate_timeline", "straggler_speedup",
+    "FleetSpec", "ChaosSpec", "ChaosEvent", "SoakReport", "WorkerReport", "chaos_schedule",
+    "claim_leases", "claim_slots", "lease_fresh", "read_lease_index", "try_adopt",
+    "worker_kill_victims", "fleet_state_hash", "run_worker", "run_fleet_local",
+    "assemble_report",
     "Telemetry", "SpanRecorder", "collect_obs", "telemetry_rollups", "chrome_trace",
 ]

@@ -154,6 +154,10 @@ class _BaseNode:
                 if (recovered is not None
                         and recovered[1].get("strategy") == self.strategy.name):
                     self.strategy.load_state_dict(recovered[0])
+            if previous is not None and self.telemetry.enabled:
+                snapshots = store.pull_obs(node_id)
+                self.telemetry.resume(
+                    self.counter, snapshots[-1][2].get("counters") if snapshots else None)
         # Background prefetch: warm the decoded-update cache between
         # federation steps so the step's pull is all cache hits.
         if prefetch_interval is not None:
@@ -195,6 +199,24 @@ class _BaseNode:
                                exc_info=True)
         if self.on_step is not None:
             self.on_step(self, aggregated)
+        return aggregated
+
+    def _aggregate(self, own: NodeUpdate, peers: list) -> PyTree:
+        """The strategy's aggregate, in the ``aggregate`` span. With telemetry
+        on, the kernel launches the strategy reports for it count as
+        ``kernel.<name>`` before the round's obs flush (a node in a child
+        process reports them there: the parent's counters never see a
+        child's)."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return self.strategy.aggregate(own, peers)
+        launches = getattr(self.strategy, "launches", {})
+        before = dict(launches)
+        with tel.span("aggregate"):
+            aggregated = self.strategy.aggregate(own, peers)
+        for name, n in launches.items():
+            if n > before.get(name, 0):
+                tel.count(f"kernel.{name}", n - before[name])
         return aggregated
 
     def _persist_strategy_state(self) -> None:
@@ -258,8 +280,7 @@ class AsyncFederatedNode(_BaseNode):
             # far behind our own counter each pulled peer update is.
             for u in peers:
                 tel.observe_staleness(own.counter - u.counter)
-        with tel.span("aggregate"):
-            aggregated = self.strategy.aggregate(own, peers)
+        aggregated = self._aggregate(own, peers)
         self.num_aggregations += 1
         if self.persist_strategy_state:
             self._persist_strategy_state()
@@ -326,8 +347,7 @@ class SyncFederatedNode(_BaseNode):
                 tel.observe_staleness(own.counter - u.counter)
         # Deterministic aggregation order across clients → identical results.
         peers.sort(key=lambda u: u.node_id)
-        with tel.span("aggregate"):
-            aggregated = self.strategy.aggregate(own, peers)
+        aggregated = self._aggregate(own, peers)
         self.num_aggregations += 1
         if self.persist_strategy_state:
             self._persist_strategy_state()

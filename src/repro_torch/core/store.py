@@ -10,8 +10,8 @@ Backends:
     python-multithreading simulation setup.
   * ``DiskFolder``    — a filesystem directory with atomic writes; this is the
     production backend (point it at an NFS/gcsfuse/s3fs mount).
-  * ``S3Folder``      — not ported yet (ROADMAP Queue 1 item 13a, slice 3); the
-    class exists so the public API matches and raises ``NotImplementedError``.
+  * ``S3Folder``      — an S3 bucket prefix (the paper's production backend);
+    needs ``boto3``, which is imported when a folder is created.
   * ``CachingFolder`` — read-through wrapper over any backend: skips
     re-downloading blobs whose per-key ``version`` metadata is unchanged
     (the Algorithm 1 state-hash fast path at per-peer granularity).
@@ -318,12 +318,65 @@ class DiskFolder(SharedFolder):
 
 
 class S3Folder(SharedFolder):
-    """S3-backed folder: not ported yet (ROADMAP Queue 1 item 13a, slice 3)."""
+    """S3-backed folder (paper's production backend). Requires boto3.
 
-    def __new__(cls, directory: str):
-        raise NotImplementedError(
-            "S3Folder is not ported yet (ROADMAP Queue 1 item 13a, slice 3); use a local "
-            "or mounted path, or memory://")
+    The module imports without boto3; instantiation raises if it is
+    unavailable.
+    """
+
+    def __init__(self, directory: str):
+        try:
+            import boto3  # type: ignore
+        except ImportError as e:
+            raise ImportError("S3Folder requires boto3") from e
+        bucket, _, prefix = directory.partition("/")
+        self._s3 = boto3.client("s3")
+        self.bucket, self.prefix = bucket, prefix.rstrip("/")
+
+    def _key(self, key: str) -> str:
+        return f"{self.prefix}/{key}.npz" if self.prefix else f"{key}.npz"
+
+    def put(self, key: str, blob: bytes) -> None:
+        self._s3.put_object(Bucket=self.bucket, Key=self._key(key), Body=blob)
+
+    def get(self, key: str) -> bytes | None:
+        try:
+            resp = self._s3.get_object(Bucket=self.bucket, Key=self._key(key))
+            return resp["Body"].read()
+        except self._s3.exceptions.NoSuchKey:
+            return None
+
+    def keys(self) -> list[str]:
+        prefix = f"{self.prefix}/" if self.prefix else ""
+        resp = self._s3.list_objects_v2(Bucket=self.bucket, Prefix=prefix)
+        out = []
+        for obj in resp.get("Contents", []):
+            name = obj["Key"][len(prefix):]
+            if name.endswith(".npz"):
+                out.append(name[: -len(".npz")])
+        return out
+
+    def delete(self, key: str) -> None:
+        self._s3.delete_object(Bucket=self.bucket, Key=self._key(key))
+
+    def version(self, key: str) -> str | None:
+        try:
+            resp = self._s3.head_object(Bucket=self.bucket, Key=self._key(key))
+        except Exception:
+            return None
+        return resp.get("ETag")
+
+    def state_hash(self, exclude: str | tuple[str, ...] | None = None) -> str:
+        prefix = f"{self.prefix}/" if self.prefix else ""
+        skip = _exclusion(exclude)
+        resp = self._s3.list_objects_v2(Bucket=self.bucket, Prefix=prefix)
+        items = sorted(
+            (o["Key"], o["ETag"])
+            for o in resp.get("Contents", [])
+            if o["Key"].endswith(".npz")
+            and not (skip is not None and skip(o["Key"][len(prefix): -len(".npz")]))
+        )
+        return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
 
 
 class CachingFolder(SharedFolder):
@@ -880,8 +933,7 @@ def make_folder(uri: str):
     per-group folders of the inner kind (e.g. 'shard16+/mnt/shared/exp1') —
     which the federated nodes turn into a gossip-sharded
     ``ShardedWeightStore``; 'shard<G>x<L>+<uri>' federates the G groups
-    through an L-level summary tree. ``s3://`` is not ported yet (ROADMAP
-    Queue 1 item 13a) and raises ``NotImplementedError``.
+    through an L-level summary tree.
 
     .. note:: Most callers want :func:`repro_torch.api.connect`, which wraps
        this factory and returns a ready store for any URI.

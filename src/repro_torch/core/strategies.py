@@ -42,14 +42,6 @@ from .tree import LeafSpec, PyTree, tree_leaves, tree_unflatten
 _ROW_ALIGN = 32
 
 
-def _combine_flat(stacked: torch.Tensor, coeffs: np.ndarray, *,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
-    """Σ_k coeffs[k]·stacked[k] — THE aggregation primitive: one ``fed_agg``
-    launch on the card, the plain version on the CPU. The coefficients need
-    not be normalized (FedAsync's lerp chain shares this code)."""
-    return fed_agg_ops.aggregate_flat(stacked, coeffs, out=out)
-
-
 class _StackCache:
     """Reusable (K, N) stack on the device, rows padded to ``_ROW_ALIGN``.
     A row is re-uploaded only when its source flat is a *different array
@@ -104,6 +96,10 @@ class Strategy(ABC):
         self._spec: LeafSpec | None = None
         self._stack = _StackCache(self.device)
         self._bufs: dict[str, torch.Tensor] = {}
+        # Kernel launches this strategy's aggregates made (on a CUDA stack
+        # every combine is a launch), never reset: a node reads them to count
+        # its own launches, also where it runs in a child process.
+        self.launches = {"fed_agg": 0, "fed_opt": 0}
 
     # -- flat plumbing -------------------------------------------------------
     def _resolve_spec(self, own: NodeUpdate) -> LeafSpec:
@@ -141,6 +137,16 @@ class Strategy(ABC):
             return self._buffer("out", spec).copy_(state)
         return state.clone()
 
+    def _combine(self, stacked: torch.Tensor, coeffs: np.ndarray, *,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+        """Σ_k coeffs[k]·stacked[k] — THE aggregation primitive: one ``fed_agg``
+        launch on the card, the plain version on the CPU. The coefficients need
+        not be normalized (FedAsync's lerp chain shares this code)."""
+        result = fed_agg_ops.aggregate_flat(stacked, coeffs, out=out)
+        if stacked.is_cuda:
+            self.launches["fed_agg"] += 1
+        return result
+
     def _mean_coeffs(self, updates: Sequence[NodeUpdate]) -> np.ndarray:
         weights = np.asarray([max(1, u.num_examples) for u in updates], np.float32)
         return weights / weights.sum()
@@ -148,7 +154,7 @@ class Strategy(ABC):
     def _weighted_mean(self, spec: LeafSpec, updates: Sequence[NodeUpdate], *,
                        out: torch.Tensor | None = None) -> torch.Tensor:
         """Example-count weighted mean (FedAvg, eq. 1) over the stack."""
-        return _combine_flat(self._stacked(spec, updates),
+        return self._combine(self._stacked(spec, updates),
                              self._mean_coeffs(updates), out=out)
 
     @abstractmethod
@@ -251,10 +257,12 @@ class _FedOpt(Strategy):
                 variant=self.variant, server_lr=self.server_lr,
                 beta1=self.beta1, beta2=self.beta2, tau=self.tau,
             )
+            if stacked.is_cuda:
+                self.launches["fed_opt"] += 1
             # fresh state that nothing aliases; next round replaces (never
             # mutates) it, so the returned views need no detach copy
             return spec.unflatten(self.x)
-        avg = _combine_flat(stacked, coeffs, out=self._buffer("avg", spec))
+        avg = self._combine(stacked, coeffs, out=self._buffer("avg", spec))
         d = self.x - avg  # pseudo-gradient
         self.m *= self.beta1
         self.m += (1.0 - self.beta1) * d
@@ -296,7 +304,7 @@ class FedAvgM(Strategy):
             self.x = self.buf = None
         updates = [own, *peers]
         stacked = self._stacked(spec, updates)
-        avg = _combine_flat(stacked, self._mean_coeffs(updates),
+        avg = self._combine(stacked, self._mean_coeffs(updates),
                             out=self._buffer("avg", spec))
         if self.x is None:
             self.x = stacked[0].clone()
@@ -384,7 +392,7 @@ class FedAsync(Strategy):
             suffix *= 1.0 - alphas[k]
         coeffs[0] = suffix
         stacked = self._stacked(spec, [own, *peers])
-        return spec.unflatten(_combine_flat(stacked, coeffs, out=self._out_buf(spec)))
+        return spec.unflatten(self._combine(stacked, coeffs, out=self._out_buf(spec)))
 
 
 class FedBuff(Strategy):
@@ -463,7 +471,7 @@ class PartialFedAvg(Strategy):
         spec = self._resolve_spec(own)
         updates = [own, *peers]
         stacked = self._stacked(spec, updates)
-        avg = _combine_flat(stacked, self._mean_coeffs(updates),
+        avg = self._combine(stacked, self._mean_coeffs(updates),
                             out=self._buffer("avg", spec))
         # stacked[0] is own's flat (just written by the stack fill): the
         # personal entries come from it

@@ -230,6 +230,19 @@ class Telemetry:
         if aggregated:
             self.aggregations += 1
 
+    def resume(self, rounds: int, counters: dict[str, float] | None = None) -> None:
+        """Continue a resumed node's telemetry. The round count and the obs
+        sequence start at ``rounds`` (the node's resumed counter): the dead
+        incarnation's ``obs/<node>/<seq>`` blobs stay in the store, and a
+        sequence restarted at 0 would rank them above the live snapshots.
+        ``counters`` (the node's last snapshot's) carry its ``kernel.*``
+        launch counts across incarnations."""
+        with self._lock:
+            self.rounds = self._rounds_at_flush = self.seq = int(rounds)
+            for name, n in (counters or {}).items():
+                if name.startswith("kernel."):
+                    self._counters[name] = self._counters.get(name, 0) + n
+
     def should_flush(self) -> bool:
         return self.enabled and self.rounds > 0 and self.rounds % self.flush_every == 0
 

@@ -65,12 +65,16 @@ def test_strategies_on_cuda_launch_the_kernels(cuda):
     own = NodeUpdate(tree(), 10, "own", counter=1)
     peer = NodeUpdate(tree(), 30, "peer", counter=1)
     kernel.reset_launches()
-    out = FedAvg().aggregate(own, [peer])
+    fedavg = FedAvg()
+    out = fedavg.aggregate(own, [peer])
     assert out["a"].is_cuda and kernel.LAUNCHES["fed_agg"] == 1
+    assert fedavg.launches == {"fed_agg": 1, "fed_opt": 0}  # what a node counts
     want = 0.25 * own.params["a"] + 0.75 * peer.params["a"]
     np.testing.assert_allclose(out["a"].cpu().numpy(), want, rtol=1e-6, atol=1e-6)
-    FedAdam(server_lr=0.1).aggregate(own, [peer])
+    fedadam = FedAdam(server_lr=0.1)
+    fedadam.aggregate(own, [peer])
     assert kernel.LAUNCHES["fed_opt"] == 1
+    assert fedadam.launches == {"fed_agg": 0, "fed_opt": 1}
 
 
 def test_sharded_delta_federation_on_the_card(cuda, tmp_path):

@@ -15,6 +15,8 @@ from repro.kernels.fed_agg.kernel import fed_agg as jax_fed_agg
 from repro.kernels.fed_agg.kernel import fed_opt as jax_fed_opt
 from repro.kernels.fed_agg.ref import fed_agg_ref as jax_fed_agg_ref
 from repro.kernels.fed_agg.ref import fed_opt_ref as jax_fed_opt_ref
+from repro_torch.core.serialize import NodeUpdate
+from repro_torch.core.strategies import STRATEGIES, get_strategy
 from repro_torch.kernels.fed_agg import kernel, ops
 from repro_torch.kernels.fed_agg.ref import fed_agg_ref, fed_opt_ref
 
@@ -135,4 +137,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                        lr=0.1, b1=0.9, b2=0.99, tau=1e-3)
     assert kernel.LAUNCHES == before
     np.testing.assert_allclose(ops.aggregate_flat(x, w).numpy(), np.ones(8))
+    assert kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", sorted(STRATEGIES))
+def test_strategies_on_the_cpu_report_no_launches(name):
+    """A strategy reports the kernel launches of its aggregates (a node
+    counts them as telemetry); on a CPU stack it runs the plain version and
+    reports none, and the wrappers' counts stay as they were."""
+    rng = np.random.default_rng(1)
+    own, peer = (NodeUpdate({"a": rng.normal(size=(3, 5)).astype(np.float32)}, n, nid, counter=1)
+                 for n, nid in ((10, "own"), (30, "peer")))
+    strategy = get_strategy(name, device="cpu")
+    before = dict(kernel.LAUNCHES)
+    for _ in range(3):
+        strategy.aggregate(own, [peer])
+    assert strategy.launches == {"fed_agg": 0, "fed_opt": 0}
     assert kernel.LAUNCHES == before
