@@ -16,6 +16,11 @@ main paths end to end:
   pseudo-peer; then a publisher pushes eight frozen-backbone fine-tune steps
   (classifier head and GroupNorm affines) through ``delta(chain=4)``, each
   rebuilt bit for bit by a fresh reader;
+* federated LM training, the paper's §4.4: three threaded silos train
+  pythia-14m at full width through ``python -m repro_torch.launch.train``'s
+  ``main`` (one FedAvg run, one FedAdam run: ``fed_agg``, ``fed_opt``);
+  then a few ``make_train_step`` steps of mamba2-130m at full width (bf16,
+  all 24 layers), and one step held against the plain CPU path in f32;
 * the serving tier: a publisher pushes granite-3-2b weights (full width,
   bf16, made from a seed) to a store, ``api.serve`` deploys them, batches of
   8 prompts x 512 tokens decode 64 greedy tokens each, and a second push
@@ -60,6 +65,28 @@ FED_CLIENTS, FED_EPOCHS, FED_STEPS, FED_BATCH = 4, 3, 8, 64
 GOSSIP_TRANSPORTS = {0: "delta(chain=4)", 1: "topk(adaptive)"}
 PUBLISH_PUSHES, PUBLISH_FAMILY = 8, {"head_and_gn": r"^fc/|(^|/)gn[0-9]*/"}
 OPT_HP = dict(lr=0.3, b1=0.9, b2=0.95, tau=1e-2)
+
+# Federated LM training (paper §4.4): pythia-14m at every published width,
+# the vocab cut to the launcher's --vocab default of 512; LM_CLIENTS threaded
+# silos, LM_EPOCHS x LM_STEPS steps of LM_BATCH x LM_SEQ tokens each. LM_LR
+# in place of the launcher's 2e-5: a cut run takes 60 steps, and bf16
+# weights near 0.09 have a ulp of 4.9e-4, so steps of 2e-5 round away.
+LM_ARCH, LM_CLIENTS, LM_EPOCHS, LM_STEPS, LM_BATCH, LM_SEQ, LM_LR = (
+    "pythia-14m", 3, 3, 20, 8, 128, "1e-3")
+# Mamba2 training: mamba2-130m at full width (bf16 weights, f32 adamw
+# moments), TRAIN_SSM_STEPS steps on one repeated batch of TRAIN_SSM_B x
+# TRAIN_SSM_S tokens at TRAIN_SSM_LR (a bf16 weight near 0.036 has a ulp of
+# 2.4e-4: the default 2e-5 would round away); one step is held against the
+# CPU in f32 at TRAIN_SSM_CHECK_LAYERS layers.
+TRAIN_SSM_ARCH, TRAIN_SSM_B, TRAIN_SSM_S, TRAIN_SSM_STEPS, TRAIN_SSM_LR = (
+    "mamba2-130m", 2, 512, 4, 1e-3)
+TRAIN_SSM_CHECK_LAYERS = 2
+# card vs CPU, f32: the loss (relative), adamw's first m = 0.1 * grad (relative
+# to each leaf's largest entry: the f32 running sums of dA reach ~-1e4 at
+# A = -(1..24), where one ulp is 1e-3, and the card's cumsum adds in another
+# order), and the weights after the step (Adam's first step is about
+# +-lr * sign(grad), so a gradient entry at rounding noise can flip: 2 lr)
+TRAIN_SSM_TOL = {"loss_rel": 1e-4, "grad_rel": 2e-3, "param_abs": 2 * TRAIN_SSM_LR + 1e-6}
 
 # The serving path: granite-3-2b at full width (bf16), batches of SERVE_B
 # prompts x SERVE_S tokens decoding SERVE_NEW greedy tokens each; the
@@ -745,8 +772,10 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
         stats = node.stats()
         swap_log = node.swap_log()
         # where a batch's time goes: prefill alone, then prefill + 16 tokens
-        profiled = {"prefill": profile_generate(node, prompts, 1),
-                    "prefill_and_16_tokens": profile_generate(node, prompts, 17)}
+        profiled = {"prefill": profile_call(lambda: node.generate(prompts, new_tokens=1),
+                                            "generate"),
+                    "prefill_and_16_tokens": profile_call(
+                        lambda: node.generate(prompts, new_tokens=17), "generate")}
     finally:
         node.stop()
     peak_mem = torch.cuda.max_memory_allocated()
@@ -808,13 +837,14 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
     return record, launches
 
 
-def profile_generate(node, prompts, new_tokens: int) -> dict:
-    """One ``generate`` under ``torch.profiler``: wall time, the device's busy
-    time (union of kernel intervals), kernel launches and top-level aten ops.
-    The profiler's own host cost inflates the wall time, so the busy share it
-    gives is a lower bound. Only a profiler that cannot start (no CUPTI) makes
-    the breakdown "not measured"; any error of ``generate`` propagates, and a
-    trace with no kernel on the card fails the phase."""
+def profile_call(fn, what: str) -> dict:
+    """One call of ``fn`` (``what`` names it) under ``torch.profiler``: wall
+    time, the device's busy time (union of kernel intervals), kernel launches
+    and top-level aten ops. The profiler's own host cost inflates the wall
+    time, so the busy share it gives is a lower bound. Only a profiler that
+    cannot start (no CUPTI) makes the breakdown "not measured"; any error of
+    ``fn`` propagates, and a trace with no kernel on the card fails the
+    phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -826,7 +856,7 @@ def profile_generate(node, prompts, new_tokens: int) -> dict:
         return {"not_measured": f"torch.profiler did not start: {e!r}"}
     try:
         t0 = time.perf_counter()
-        node.generate(prompts, new_tokens=new_tokens)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -835,7 +865,7 @@ def profile_generate(node, prompts, new_tokens: int) -> dict:
     kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                      if e.device_type == DeviceType.CUDA)
     if not kernels:
-        raise AssertionError("torch.profiler traced no kernel on the card during generate")
+        raise AssertionError(f"torch.profiler traced no kernel on the card during {what}")
     busy_us, end = 0.0, float("-inf")
     by_name: dict[str, float] = {}
     ours = {name: [0, 0.0] for name in KERNEL_SYMBOLS}  # launches, device us
@@ -1458,6 +1488,185 @@ def obs_phase(store_uri: str) -> dict:
     return {"dashboard": lines, "rollups": rollups, "trace_spans": spans}
 
 
+def federation_lm(dev, root: str, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
+    """The paper's §4.4 through the launcher a user runs: ``main(["--simulate",
+    "3", "--mode", "async", "--strategy", <s>, ...])`` of
+    ``repro_torch.launch.train`` for FedAvg, then FedAdam, on disk stores
+    under ``root``, with telemetry on (``REPRO_OBS``) so each silo reports its
+    epoch and aggregate spans. Raises unless main exits 0, every silo
+    aggregated, every loss is finite, the FedAvg run's mean loss fell from
+    the first epoch to the last, and ``fed_agg``/``fed_opt`` over each
+    store's pulled (K, N) stack agree with the plain versions at 1e-5.
+    Returns the record and the kernel launches the two runs made."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.store import DiskFolder, WeightStore
+    from repro_torch.core.tree import LeafSpec
+    from repro_torch.data import make_synthetic_wikitext
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import build_model
+
+    cfg = get_config(LM_ARCH).replace(vocab_size=512)  # what main makes of --vocab 512
+    n_params = LeafSpec.of(build_model(cfg).abstract()).num_params
+    runs, launches = {}, {"fed_agg": 0, "fed_opt": 0}
+    saved = os.environ.get("REPRO_OBS")
+    os.environ["REPRO_OBS"] = "1"
+    try:
+        for strategy in ("fedavg", "fedadam"):
+            store = os.path.join(root, strategy)
+            argv = ["--arch", LM_ARCH, "--simulate", str(LM_CLIENTS), "--mode", "async",
+                    "--strategy", strategy, "--store", store, "--epochs", str(LM_EPOCHS),
+                    "--steps-per-epoch", str(LM_STEPS), "--batch-size", str(LM_BATCH),
+                    "--seq-len", str(LM_SEQ), "--lr", LM_LR, "--device", dev.type]
+            fk.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = lm_train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_launches = dict(fk.LAUNCHES)
+            if rc != 0:
+                raise RuntimeError(f"launch.train.main {argv} exited {rc}:\n{out.getvalue()}")
+            results = [json.loads(line) for line in out.getvalue().splitlines()
+                       if line.startswith("{")]
+            if len(results) != LM_CLIENTS:
+                raise AssertionError(f"{strategy}: {len(results)} silo results:\n{out.getvalue()}")
+            clients = []
+            for r in results:
+                losses = r["train_loss"] + [r["eval_loss"], r["eval_accuracy"]]
+                if not all(math.isfinite(v) for v in losses) or r["aggregations"] < 1:
+                    raise AssertionError(f"{strategy} {r['node']}: {r}")
+                train, agg = r["spans"]["train"], r["spans"]["aggregate"]
+                clients.append({
+                    "node": r["node"], "pushes": r["pushes"], "aggregations": r["aggregations"],
+                    "train_loss": r["train_loss"], "eval_loss": r["eval_loss"],
+                    "eval_accuracy": r["eval_accuracy"],
+                    "epoch_s": {k: train[k] for k in ("min_s", "mean_s", "max_s")},
+                    "aggregate_host_ms_mean": agg["mean_s"] * 1e3})
+            first = sum(c["train_loss"][0] for c in clients) / len(clients)
+            last = sum(c["train_loss"][-1] for c in clients) / len(clients)
+            name = "fed_agg" if strategy == "fedavg" else "fed_opt"
+            if run_launches[name] < 1:
+                raise AssertionError(f"the {strategy} run never launched {name}: {run_launches}")
+            if strategy == "fedavg" and not last < first:
+                raise AssertionError(f"FedAvg mean loss did not fall: {first} -> {last}")
+            folder = DiskFolder(store)
+            blobs = [len(folder.get(k)) for k in folder.keys() if k.startswith("latest/")]
+            pulled = WeightStore(folder).pull()
+            runs[strategy] = {
+                "wall_s": wall, "launches": run_launches, "clients": clients,
+                "mean_train_loss_first_epoch": first, "mean_train_loss_last_epoch": last,
+                "bytes_per_push": blobs,
+                "pulled_check": check_deposits(dev, pulled, fk, fed_agg_ref, fed_opt_ref, 18)}
+            if runs[strategy]["pulled_check"]["N"] != n_params:
+                raise AssertionError(f"pulled N {runs[strategy]['pulled_check']['N']} != {n_params}")
+            for k in launches:
+                launches[k] += run_launches[k]
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_OBS", None)
+        else:
+            os.environ["REPRO_OBS"] = saved
+    # one silo's train step alone (no other thread), as the launcher builds it
+    data = make_synthetic_wikitext(vocab_size=cfg.vocab_size, seed=0)
+    trainer, data_fn = lm_train.make_lm_trainer(cfg, data.train_tokens, seq_len=LM_SEQ,
+                                                batch_size=LM_BATCH, seed=0, lr=float(LM_LR),
+                                                device=dev)
+    trainer.run_epoch(data_fn(0), steps=3)
+    profiled = profile_call(lambda: trainer.run_epoch(data_fn(1), steps=1), "a pythia train step")
+    return {"arch": LM_ARCH, "dtype": cfg.dtype, "params": n_params,
+            "reduced": {"vocab_size": [get_config(LM_ARCH).vocab_size, cfg.vocab_size]},
+            "clients": LM_CLIENTS, "epochs": LM_EPOCHS, "steps_per_epoch": LM_STEPS,
+            "batch": LM_BATCH, "seq_len": LM_SEQ, "lr": float(LM_LR), "runs": runs,
+            "profile_one_step_alone": profiled}, launches
+
+
+def train_ssm(dev) -> dict:
+    """mamba2-130m at full width (24 layers, d_model 768, bf16 weights, f32
+    adamw moments) through ``launch.steps.make_train_step`` (remat on):
+    TRAIN_SSM_STEPS steps on one repeated batch. Raises unless every loss is
+    finite, the last is below the first, and no forward-only kernel was
+    launched. Then one step at TRAIN_SSM_CHECK_LAYERS layers in f32, on the
+    card and on the CPU from the same weights and batch, held at
+    TRAIN_SSM_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    forward_only = {"ssd_scan": ssd_kernel, "flash_attention": flash_kernel}
+
+    def kernel_launches():
+        return {name: mod.LAUNCHES[name] for name, mod in forward_only.items()}
+
+    cfg = get_config(TRAIN_SSM_ARCH)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_SSM_B, TRAIN_SSM_S + 1), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    params = build_model(cfg).init(0, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = adamw(TRAIN_SSM_LR)
+    opt_state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    before = kernel_launches()
+    torch.cuda.synchronize()
+    mem_at_start = torch.cuda.memory_allocated()  # this phase's weights and moments included
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_SSM_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    profiled = profile_call(lambda: step(params, opt_state, batch), "a mamba2 train step")
+    if kernel_launches() != before:
+        raise AssertionError(f"training launched a forward-only kernel: {before} -> "
+                             f"{kernel_launches()}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"mamba2 training loss did not fall: {losses}")
+    del params, opt_state
+
+    # one f32 step at reduced depth, card vs CPU
+    ccfg = cfg.replace(dtype="float32", n_layers=TRAIN_SSM_CHECK_LAYERS)
+    cpu_params = build_model(ccfg).init(3, device="cpu")
+    results = {}
+    for where in (dev.type, "cpu"):
+        p = tree_map(lambda t: t.to(where, copy=True), cpu_params)
+        o = adamw(TRAIN_SSM_LR)
+        s = o.init(p)
+        t0 = time.perf_counter()
+        p, s, m = make_train_step(ccfg, o)(p, s, {k: v.to(where) for k, v in batch.items()})
+        loss = float(m["loss"])
+        results[where] = (loss, tree_map(lambda t: t.cpu(), p), tree_map(lambda t: t.cpu(), s["m"]),
+                          time.perf_counter() - t0)
+    (gl, gp, gm, g_s), (cl, cp, cm, c_s) = results[dev.type], results["cpu"]
+    loss_rel = abs(gl - cl) / abs(cl)
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(tree_leaves(gm), tree_leaves(cm)))
+    param_abs = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(gp), tree_leaves(cp)))
+    check = {"n_layers": ccfg.n_layers, "dtype": ccfg.dtype, "loss_card": gl, "loss_cpu": cl,
+             "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "param_max_abs_err": param_abs,
+             "tol": TRAIN_SSM_TOL, "step_s_card": g_s, "step_s_cpu": c_s}
+    if not (loss_rel <= TRAIN_SSM_TOL["loss_rel"] and grad_rel <= TRAIN_SSM_TOL["grad_rel"]
+            and param_abs <= TRAIN_SSM_TOL["param_abs"]):
+        raise AssertionError(f"mamba2 train step, card vs CPU, over the tolerance: {check}")
+    return {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": n_params, "batch": TRAIN_SSM_B,
+            "seq_len": TRAIN_SSM_S, "optimizer": f"adamw({TRAIN_SSM_LR}), f32 m/v",
+            "remat": True, "losses": losses, "step_ms": step_ms,
+            "peak_device_memory_bytes": peak, "device_memory_at_start_bytes": mem_at_start,
+            "forward_only_kernel_launches": 0,
+            "profile_step": profiled, "card_vs_cpu": check}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1672,10 +1881,19 @@ def main() -> None:
         emit("obs", **obs_phase(os.path.join(root, "soak")))
     launches = {name: launches[name] + proc_launches[name] + soak_launches[name]
                 for name in launches}
+
+    # -- 14. federation_lm / 15. train_ssm: federated LM training (paper §4.4)
+    #        through the launcher, then Mamba2 training --------------------------
+    with tempfile.TemporaryDirectory(prefix="repro_torch_lm_") as root:
+        record, lm_launches = federation_lm(dev, root, fk, fed_agg_ref, fed_opt_ref)
+    emit("federation_lm", card=card, nvidia_smi=smi, **record)
+    deposit_errs += [run["pulled_check"]["max_abs_err"] for run in record["runs"].values()]
+    launches = {name: launches[name] + lm_launches[name] for name in launches}
     for name in ("fed_agg", "fed_opt"):
         max_err[name] = max(max_err[name], *(e[name] for e in deposit_errs))
+    emit("train_ssm", card=card, nvidia_smi=smi, **train_ssm(dev))
 
-    # -- 14. serving_consistency / 15. serving: the port's second main path -----
+    # -- 16. serving_consistency / 17. serving: the port's second main path -----
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -1695,7 +1913,7 @@ def main() -> None:
     profiles = {"flash_attention": record["profile"]["prefill"],
                 "decode_attention": record["profile"]["prefill_and_16_tokens"]}
 
-    # -- 16. serving_ssm_consistency / 17. serving_ssm: Mamba2, the reference's
+    # -- 18. serving_ssm_consistency / 19. serving_ssm: Mamba2, the reference's
     #        serving default, through the same entry points -------------------------
     emit("serving_ssm_consistency", **serving_consistency(
         dev, SSM_ARCH, SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW, ssd_kernel,

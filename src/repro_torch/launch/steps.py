@@ -1,9 +1,12 @@
-"""The serving steps — the port of ``make_bulk_prefill_step`` and
-``make_serve_step`` of ``repro.launch.steps``.
+"""Step builders — the port of ``repro.launch.steps``: ``make_train_step``
+(one optimizer step, optionally over micro-batches), and the serving steps
+``make_bulk_prefill_step`` and ``make_serve_step``.
 
-Plain functions on tensors, run under ``torch.inference_mode()``; the caches
-they take are updated in place (and returned, as the reference's are).
-Training steps come with LM training (ROADMAP Queue 1, item 16).
+Plain functions on tensors. The train step updates the parameter and moment
+tensors in place (and returns them); its forward takes the plain attention
+and SSD paths, which autograd differentiates. The serving steps run under
+``torch.inference_mode()`` through the forward kernels; the caches they take
+are updated in place (and returned, as the reference's are).
 """
 from __future__ import annotations
 
@@ -11,7 +14,57 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.tree import tree_map
 from repro_torch.models import ModelConfig, build_model
+from repro_torch.optim import Optimizer, adafactor, adamw, apply_updates
+from repro_torch.training.trainer import value_and_grad
+
+# Models whose optimizer-moment memory would not fit with full Adam on the
+# production mesh use factored moments (Adafactor).
+ADAFACTOR_THRESHOLD = 50_000_000_000
+
+
+def default_optimizer(cfg: ModelConfig, approx_params: int | None = None) -> Optimizer:
+    if approx_params is not None and approx_params >= ADAFACTOR_THRESHOLD:
+        return adafactor(1e-4)
+    if cfg.name.startswith("grok-1"):
+        return adafactor(1e-4)
+    return adamw(2e-5)
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = True,
+                    microbatches: int = 1) -> Callable:
+    """(params, opt_state, batch) → (params, opt_state, metrics): one
+    optimizer step. ``microbatches`` > 1 runs the global batch in
+    micro-slices, accumulating the gradients in f32 divided by
+    ``microbatches`` in slice order (the reference's ``lax.scan``); the loss
+    and metrics are the slices' means."""
+    model = build_model(cfg)
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch, remat=remat)
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        else:
+            micro = {k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
+                     for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            losses, metricses = [], []
+            for i in range(microbatches):
+                (loss_i, metrics_i), g = value_and_grad(
+                    loss_fn, params, {k: v[i] for k, v in micro.items()})
+                tree_map(lambda a, gi: a.add_(gi.float() / microbatches), grads, g)
+                losses.append(loss_i)
+                metricses.append(metrics_i)
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in metricses]).mean() for k in metricses[0]}
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, {"loss": loss, **metrics}
+
+    return train_step
 
 
 def make_bulk_prefill_step(cfg: ModelConfig, *, window_override: int | None = None) -> Callable:

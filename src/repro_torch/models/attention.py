@@ -2,27 +2,34 @@
 port of the GQA part of ``repro.models.attention``.
 
 Two entry points, as in the reference:
-  * full-sequence causal (prefill): ``attn_full`` / ``attn_prefill``,
+  * full-sequence causal (training / prefill): ``attn_full`` / ``attn_prefill``,
   * single-token decode against a fixed-capacity ring KV cache: ``attn_decode``
     (capacity C = max_len for full attention, = window for sliding attention).
 
-On CUDA tensors the attention itself always runs in the port's hand-written
-kernels: full/prefill through the ``flash_attention`` op, decode through the
-``decode_attention`` op. Neither TPU kernel has a logit softcap, so a config
-with one raises ``NotImplementedError`` on the card; on the CPU it takes the
-reference's masked softmax (``_sdpa``). CPU tensors take the ops' plain
-versions, which compute the reference's ``_sdpa``.
+``use_flash`` is the reference's switch between the kernel and plain
+attention. Training leaves it off (``attn_full``'s default, as in the
+reference): attention is then plain tensor code under autograd, the masked
+softmax ``_sdpa`` or, above ``CHUNKED_THRESHOLD``, ``chunked_sdpa``, which
+recomputes each query block in the backward (``torch.utils.checkpoint`` where
+the reference has ``jax.checkpoint``). The kernels are forward-only. Serving
+turns it on: on CUDA tensors bulk prefill runs the ``flash_attention`` op and
+decode the ``decode_attention`` op, the port's hand-written kernels. Neither
+TPU kernel has a logit softcap, so serving a config with one raises
+``NotImplementedError`` on the card; on the CPU it takes the reference's
+masked softmax. CPU tensors take the ops' plain versions, which compute the
+reference's ``_sdpa``.
 
 Unlike the reference's pure functions, the cache is updated *in place* (and
 returned): a cache is a few GB at serving's batch sizes, and a functional
-update would copy it every token. MLA and ``chunked_sdpa`` are not ported yet
-(ROADMAP Queue 1, item 17).
+update would copy it every token. MLA is not ported yet (ROADMAP Queue 1,
+item 17).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -55,6 +62,57 @@ def _sdpa(q, k, v, mask, softcap: float) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.to(v.dtype)
+
+
+def chunked_sdpa(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                 window: int = 0, softcap: float = 0.0, qblock: int = 256,
+                 probs_bf16: bool = False) -> torch.Tensor:
+    """Memory-bounded attention: a loop over query blocks, full softmax per
+    row against (a slice of) K. Never materializes the S×T score matrix.
+    With a sliding ``window``, each q-block only reads a (window + qblock)
+    K/V slice. Under autograd each block is recomputed in the backward
+    instead of saving its f32 (B,KV,G,qblock,T) probabilities.
+    qg: (B,S,KV,G,hd), k/v: (B,T,KV,hd)."""
+    B, S, KV, G, hd = qg.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    if S % qblock != 0:
+        qblock = math.gcd(S, qblock) or S
+    use_slice = window > 0 and causal
+    span = min(T, window + qblock) if use_slice else T
+
+    def body(qblk: torch.Tensor, q0: int) -> torch.Tensor:
+        start = min(max(q0 + qblock - span, 0), T - span) if use_slice else 0
+        ks, vs = k[:, start:start + span], v[:, start:start + span]
+        kpos = start + torch.arange(span, device=k.device)
+        scores = torch.einsum("bskgh,btkh->bkgst", qblk.float(), ks.float()) * scale
+        scores = _maybe_softcap(scores, softcap)
+        qpos = q0 + torch.arange(qblock, device=k.device)
+        mask = torch.ones((qblock, span), dtype=torch.bool, device=k.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        probs = torch.softmax(torch.where(mask[None, None, None], scores, NEG_INF), dim=-1)
+        if probs_bf16:
+            dt = torch.promote_types(torch.bfloat16, vs.dtype)
+            out = torch.einsum("bkgst,btkh->bskgh", probs.to(torch.bfloat16).to(dt), vs.to(dt))
+        else:
+            out = torch.einsum("bkgst,btkh->bskgh", probs, vs.float())
+        return out.to(v.dtype)
+
+    outs = []
+    for q0 in range(0, S, qblock):
+        qblk = qg[:, q0:q0 + qblock]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(body, qblk, q0, use_reentrant=False))
+        else:
+            outs.append(body(qblk, q0))
+    return torch.cat(outs, dim=1)
+
+
+# sequences longer than this use the chunked path in attn_full
+CHUNKED_THRESHOLD = 1024
 
 
 def causal_mask(seq: int, window: int = 0, offset: int = 0, device=None) -> torch.Tensor:
@@ -110,25 +168,30 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
     return q, k, v
 
 
-def _full_causal_out(cfg: ModelConfig, qg, k, v, *, window: int):
-    """Full-sequence causal attention shared by attn_full / attn_prefill."""
-    if cfg.attn_logit_softcap == 0:
-        return flash_ops.flash_attention(qg, k, v, window=window)
-    _no_softcap_on_cuda(qg, cfg)
-    return _sdpa(qg, k, v, causal_mask(qg.shape[1], window, device=qg.device),
-                 cfg.attn_logit_softcap)
+def _full_causal_out(cfg: ModelConfig, qg, k, v, *, window: int, use_flash: bool):
+    """Full-sequence causal dispatch shared by attn_full / attn_prefill."""
+    S = qg.shape[1]
+    if use_flash:
+        if cfg.attn_logit_softcap == 0:
+            return flash_ops.flash_attention(qg, k, v, window=window)
+        _no_softcap_on_cuda(qg, cfg)
+    if S > CHUNKED_THRESHOLD:
+        return chunked_sdpa(qg, k, v, causal=True, window=window,
+                            softcap=cfg.attn_logit_softcap, qblock=cfg.attn_qblock,
+                            probs_bf16=cfg.attn_probs_bf16)
+    return _sdpa(qg, k, v, causal_mask(S, window, device=qg.device), cfg.attn_logit_softcap)
 
 
-def attn_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-              window: int | None = None) -> torch.Tensor:
-    """Full-sequence causal attention (prefill without a cache)."""
+def attn_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int | None = None,
+              use_flash: bool = False) -> torch.Tensor:
+    """Full-sequence causal attention (train / prefill without a cache)."""
     B, S, _ = x.shape
     window = cfg.sliding_window if window is None else window
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     G = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim_)
-    out = _full_causal_out(cfg, qg, k, v, window=window)
+    out = _full_causal_out(cfg, qg, k, v, window=window, use_flash=use_flash)
     return dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim_))
 
 
@@ -196,7 +259,8 @@ def attn_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     """``attn_full`` that also fills the decode ring cache — serving's bulk
     prefill. Equivalent to pushing the prompt through ``attn_decode`` one
     token at a time (same projections, same rope positions, same ring
-    occupancy) at full-sequence matmul cost. ``cache`` must be fresh
+    occupancy) at full-sequence matmul cost, through the flash kernel on the
+    card (serving never takes gradients). ``cache`` must be fresh
     (``init_attn_cache``); positions start at 0."""
     B, S, _ = x.shape
     window = cfg.sliding_window if window is None else window
@@ -204,6 +268,6 @@ def attn_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     q, k, v = _project_qkv(p, cfg, x, positions)
     G = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim_)
-    out = _full_causal_out(cfg, qg, k, v, window=window)
+    out = _full_causal_out(cfg, qg, k, v, window=window, use_flash=True)
     out = dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim_))
     return out, fill_ring(cache, {"k": k, "v": v}, S)

@@ -246,6 +246,25 @@ def mlp_apply(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     return dense_apply(p["wo"], h)
 
 
+# -- losses -------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          valid_vocab: int | None = None) -> torch.Tensor:
+    """Per-token CE in f32; padded vocab tail masked out."""
+    logits = logits.float()
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        mask = torch.arange(logits.shape[-1], device=logits.device) < valid_vocab
+        logits = torch.where(mask, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def token_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(dim=-1) == labels).float().mean()
+
+
 # -- parameters from the reference --------------------------------------------
 
 

@@ -1,11 +1,13 @@
 """Mamba2 — the state-space duality (SSD) block [arXiv:2405.21060]; the port
 of ``repro.models.ssm``.
 
-The full-sequence paths (``mamba2_full`` and serving's bulk prefill
-``mamba2_prefill``) run the SSD chunked dual form through the ``ssd_scan``
-op: on a CUDA tensor the hand-written kernel, on a CPU tensor the plain
-``ssd_chunked`` (the reference calls ``ssd_chunked`` directly; its TPU kernel
-computes the same function). The SSD core (``segsum``, ``ssd_chunked``,
+Serving's bulk prefill ``mamba2_prefill`` runs the SSD chunked dual form
+through the ``ssd_scan`` op: on a CUDA tensor the hand-written kernel, on a
+CPU tensor the plain ``ssd_chunked`` (the reference calls ``ssd_chunked``
+directly; its TPU kernel computes the same function). ``mamba2_full``, the
+training forward, calls the plain ``ssd_chunked`` on any device, as the
+reference does, so autograd differentiates it (the kernel is forward-only).
+The SSD core (``segsum``, ``ssd_chunked``,
 ``ssd_sequential``) lives in ``repro_torch.kernels.ssd_scan.ref`` and is
 re-exported here. Decode carries (conv_state, ssm_state): O(1) per token.
 
@@ -106,7 +108,9 @@ def mamba2_full(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     z, xBC, dt_raw = _project_in(p, cfg, x)
     xBC = causal_conv1d(xBC, p["conv_w"], p["conv_b"])
     xh, xdt, dA, Bm, Cm = _ssd_inputs(p, cfg, xBC, dt_raw)
-    y, _ = ssd_ops.ssd(xdt, dA, Bm, Cm, chunk=cfg.ssm_chunk)
+    shape = (*Bm.shape[:2], xh.shape[2], Bm.shape[-1])
+    y, _ = ssd_chunked(xdt, dA, Bm[:, :, None].expand(shape), Cm[:, :, None].expand(shape),
+                       cfg.ssm_chunk)
     return _gated_out(p, cfg, y, xh, z)
 
 

@@ -9,6 +9,16 @@ embeddings are untied. So ``LeafSpec.key`` and the wire match, and a JAX
 node's weights deploy in the port. Where the reference scans over the group
 axis, the port loops in Python over the stacked leaves' slices (views).
 
+``loss`` is the reference's training loss (mean token CE over the valid
+vocab, plus the router aux term, which is 0 here). The full forward
+(``apply``, ``loss``) is plain tensor code that autograd differentiates, as
+the port's CUDA kernels are forward-only: attention takes the flash kernel
+only with ``use_flash=True`` (the reference's switch, off by default), and
+``ssm`` blocks always run the plain ``ssd_chunked``, as in the reference.
+Serving's ``prefill`` and ``decode_step`` run the kernels. ``remat=True``
+recomputes each layer group in the backward (``torch.utils.checkpoint``,
+where the reference has ``jax.checkpoint``).
+
 Block kinds other than ``attn`` and ``ssm`` (``moe_attn``, ``rglru``), MLA,
 encoder-decoders and VLM prefixes are not ported yet (ROADMAP Queue 1,
 item 17): building such a model raises ``NotImplementedError``.
@@ -16,6 +26,7 @@ item 17): building such a model raises ``NotImplementedError``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import tree_flatten_with_path, tree_unflatten
 from repro_torch.kernels import resolve_device
@@ -30,6 +41,8 @@ from .common import (
     mlp_init,
     rmsnorm_apply,
     rmsnorm_init,
+    softmax_cross_entropy,
+    token_accuracy,
     unembed_apply,
 )
 
@@ -70,11 +83,12 @@ def _init_block(gen, cfg: ModelConfig, kind: str, lead: tuple = ()) -> dict:
     raise ValueError(f"unknown block kind {kind!r}")
 
 
-def _apply_block_full(p, cfg: ModelConfig, kind: str, x, *, window_override=None):
+def _apply_block_full(p, cfg: ModelConfig, kind: str, x, *, window_override=None,
+                      use_flash=False):
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if kind == "ssm":
         return x + ssm_mod.mamba2_full(p["ssm"], cfg, h)
-    x = x + attn_mod.attn_full(p["attn"], cfg, h, window=window_override)
+    x = x + attn_mod.attn_full(p["attn"], cfg, h, window=window_override, use_flash=use_flash)
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h, cfg.activation)
 
@@ -192,12 +206,42 @@ class DecoderLM:
         return unembed_apply(params.get("unembed", params["embed"]), x)
 
     # -- full forward ----------------------------------------------------------
-    def apply(self, params, tokens, extra_embeds=None, *, window_override=None):
+    def _group_full(self, group: dict, x, window_override, use_flash):
+        for u, kind in enumerate(self.pattern):
+            x = _apply_block_full(group[f"u{u}_{kind}"], self.cfg, kind, x,
+                                  window_override=window_override, use_flash=use_flash)
+        return x
+
+    def apply(self, params, tokens, extra_embeds=None, *, window_override=None,
+              remat: bool = False, use_flash: bool = False):
         """→ (logits (B,S,padded_vocab), aux_loss)."""
+        if remat and self.cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={self.cfg.remat_policy!r} is not ported; the port recomputes "
+                "whole layer groups ('full')")
         x = self._embed(params, tokens, extra_embeds)
-        for kind, p, _ in self._layers(params):
-            x = _apply_block_full(p, self.cfg, kind, x, window_override=window_override)
+        for group in self._per_group(params["blocks"]):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(self._group_full, group, x, window_override, use_flash,
+                               use_reentrant=False)
+            else:
+                x = self._group_full(group, x, window_override, use_flash)
+        for i, kind in enumerate(self.tail):
+            x = _apply_block_full(params["tail"][f"t{i}_{kind}"], self.cfg, kind, x,
+                                  window_override=window_override, use_flash=use_flash)
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # -- loss -------------------------------------------------------------------
+    def loss(self, params, batch, rng=None, *, remat: bool = False, use_flash: bool = False):
+        """→ (loss, {"ce", "aux", "accuracy"}): mean token CE over the valid
+        vocab plus the router aux term, as the reference computes it."""
+        cfg = self.cfg
+        labels = batch["labels"]
+        logits, aux = self.apply(params, batch["tokens"], batch.get("embeds"), remat=remat,
+                                 use_flash=use_flash)
+        ce = softmax_cross_entropy(logits, labels, valid_vocab=cfg.vocab_size).mean()
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux, "accuracy": token_accuracy(logits, labels)}
 
     # -- decode -------------------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, *, window_override=None,

@@ -10,19 +10,24 @@ parameter and moment tensors for the whole run.
 
 Adam follows the reference exactly — ``m/bc1 / (sqrt(v/bc2) + eps)`` —
 which places eps and the bias corrections differently from
-``torch.optim.Adam``. Implemented: sgd (+momentum/nesterov), adam, adamw and
-the constant / linear / warmup-cosine schedules. adafactor, clipping and
-accumulation come with the LLM slice (ROADMAP Queue 1, slice 2).
+``torch.optim.Adam``. Implemented, as in the reference: sgd
+(+momentum/nesterov), adam, adamw, adafactor (factored second moments),
+global-norm clipping, gradient accumulation, and the constant / linear /
+warmup-cosine schedules. ``load_jax_opt_state`` carries an optimizer state of
+the reference (numpy leaves) over to the port's layout.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import (
+    as_tensor, tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten,
+)
+from repro_torch.kernels import resolve_device
 
 PyTree = Any
 Schedule = Callable[[int], float]  # step -> lr
@@ -76,8 +81,16 @@ class Optimizer:
 
 @torch.no_grad()
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
-    """params += updates, in place (cast to each parameter's dtype)."""
-    return tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
+    """params += updates, in place. A floating parameter takes the sum in the
+    update's f32, rounded once to its own dtype, as the reference's
+    ``(p + u).astype(p.dtype)`` does: a bf16 weight is not moved by an update
+    rounded to bf16 first."""
+    return tree_map(lambda p, u: p.add_(u if p.is_floating_point() else u.to(p.dtype)),
+                    params, updates)
+
+
+class ScaleState(NamedTuple):
+    step: int
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
@@ -144,10 +157,129 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return _adam_core(lr, b1, b2, eps, weight_decay, "adamw")
 
 
-OPTIMIZERS = {"sgd": sgd, "adam": adam, "adamw": adamw}
+def adafactor(lr, eps: float = 1e-30, decay: float = 0.8) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern 2018, simplified),
+    the reference's: a leaf of rank ≥ 2 keeps row and column means of the
+    squared gradient (``vr`` over the last axis, ``vc`` over the one before),
+    others a full ``v``; β_t = 1 − t^(−decay) in f32."""
+    sched = _resolve_schedule(lr)
+
+    def init(params):
+        def per_leaf(p):
+            if p.dim() >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": _zeros_f32(p)}
+
+        return {"step": 0, "moments": tree_map(per_leaf, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = sched(step)
+        beta = float(np.float32(1.0) - np.float32(step) ** np.float32(-decay))
+
+        def per_leaf(g, mom):
+            g = g.float()
+            g2 = torch.square(g) + eps
+            if "vr" in mom:
+                vr = mom["vr"].mul_(beta).add_((1 - beta) * g2.mean(dim=-1))
+                vc = mom["vc"].mul_(beta).add_((1 - beta) * g2.mean(dim=-2))
+                row_mean = torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None], min=eps)
+                denom = torch.sqrt(vr[..., :, None] * vc[..., None, :] / row_mean)
+                return -(lr_t * g / torch.clamp(denom, min=1e-12))
+            v = mom["v"].mul_(beta).add_((1 - beta) * g2)
+            return -(lr_t * g / torch.sqrt(v))
+
+        moments = state["moments"]
+        leaves, treedef = tree_flatten_with_path(grads)
+        upd = tree_unflatten(treedef, [per_leaf(g, _at(moments, path)) for path, g in leaves])
+        return upd, {"step": step, "moments": moments}
+
+    return Optimizer(init, update, "adafactor")
+
+
+def _at(tree: PyTree, path: tuple) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+# --------------------------------------------------------------------------
+# Gradient transforms
+# --------------------------------------------------------------------------
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads)
+
+
+def chain_clip(optimizer: Optimizer, max_norm: float) -> Optimizer:
+    def update(grads, state, params):
+        return optimizer.update(clip_by_global_norm(grads, max_norm), state, params)
+
+    return Optimizer(optimizer.init, update, f"{optimizer.name}+clip{max_norm}")
+
+
+def with_accumulation(optimizer: Optimizer, accumulate_steps: int) -> Optimizer:
+    """Gradient accumulation: buffers grads; applies the inner optimizer every
+    ``accumulate_steps`` micro-steps (paper §4.4 uses accumulation of 10)."""
+    if accumulate_steps <= 1:
+        return optimizer
+
+    def init(params):
+        return {"inner": optimizer.init(params), "acc": tree_map(_zeros_f32, params),
+                "count": 0}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        acc = tree_map(lambda a, g: a.add_(g.float() / accumulate_steps), state["acc"], grads)
+        count = state["count"] + 1
+        if count >= accumulate_steps:
+            upd, inner = optimizer.update(acc, state["inner"], params)
+            tree_map(lambda a: a.zero_(), acc)
+            return upd, {"inner": inner, "acc": acc, "count": 0}
+        upd = tree_map(_zeros_f32, params)
+        return upd, {"inner": state["inner"], "acc": acc, "count": count}
+
+    return Optimizer(init, update, f"{optimizer.name}+acc{accumulate_steps}")
+
+
+OPTIMIZERS = {"sgd": sgd, "adam": adam, "adamw": adamw, "adafactor": adafactor}
 
 
 def get_optimizer(name: str, lr, **kwargs) -> Optimizer:
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; options {sorted(OPTIMIZERS)}")
     return OPTIMIZERS[name](lr, **kwargs)
+
+
+def load_jax_opt_state(state: Any, *, device: "str | torch.device" = "cuda") -> Any:
+    """An optimizer state of the reference (``np.asarray`` of each leaf, e.g.
+    adamw's ``{"step", "m", "v"}``, adafactor's factored ``moments``,
+    ``with_accumulation``'s ``{"inner", "acc", "count"}``) as the port's: every
+    0-d integer leaf (a step or count) a Python int, every other array a
+    tensor of its own dtype on ``device`` (a copy), ``None`` kept."""
+    dev = resolve_device(device)
+
+    def convert(x):
+        if isinstance(x, dict):
+            return {k: convert(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(convert(v) for v in x)
+        if x is None:
+            return None
+        a = np.asarray(x)
+        if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+            return int(a)
+        return as_tensor(np.array(a, copy=True)).to(dev)
+
+    return convert(state)

@@ -1,3 +1,3 @@
-from .trainer import Trainer
+from .trainer import TrainState, Trainer, make_train_step, value_and_grad
 
-__all__ = ["Trainer"]
+__all__ = ["TrainState", "Trainer", "make_train_step", "value_and_grad"]

@@ -5,12 +5,15 @@ The federated layer (``repro_torch.core.FederatedCallback``) plugs into
 ``on_epoch_end`` exactly as the paper plugs its FlwrFederatedCallback into
 Keras. Parameters are a dict of tensors on the trainer's device; a step takes
 gradients of the loss with respect to every leaf with ``torch.autograd.grad``
-and updates the tensors in place.
+(``value_and_grad``) and updates the tensors in place. ``make_train_step``
+is the same step as a plain function, the reference's (params, opt_state,
+batch, rng) → (params, opt_state, metrics).
 """
 from __future__ import annotations
 
 import random as _random
 import time
+from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
@@ -25,6 +28,46 @@ from repro_torch.optim import Optimizer, apply_updates
 
 # loss_fn(params, batch, generator) -> (loss, metrics dict of 0-d tensors)
 LossFn = Callable[[PyTree, Any, torch.Generator], tuple[torch.Tensor, dict]]
+
+
+@dataclass
+class TrainState:
+    params: PyTree
+    opt_state: PyTree
+    step: int = 0
+
+
+def value_and_grad(loss_fn: Callable, params: PyTree, *args) -> tuple[tuple, PyTree]:
+    """((loss, metrics), grads as a tree like ``params``) of
+    ``loss_fn(params, *args)`` → (loss, metrics), as ``jax.value_and_grad(...,
+    has_aux=True)``. The leaves track gradients only inside this call; a leaf
+    the loss does not use gets a zero gradient, as under ``jax.grad``. The
+    loss comes back detached."""
+    leaves_with_paths, treedef = tree_flatten_with_path(params)
+    leaves = [leaf for _, leaf in leaves_with_paths]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    try:
+        loss, metrics = loss_fn(params, *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    finally:
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), tree_unflatten(treedef, grads)
+
+
+def make_train_step(loss_fn: LossFn, optimizer: Optimizer):
+    """(params, opt_state, batch, rng) -> (params, opt_state, metrics). The
+    parameter and moment tensors are updated in place and returned."""
+
+    def train_step(params, opt_state, batch, rng):
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch, rng)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, {**metrics, "loss": loss}
+
+    return train_step
 
 
 def _owned(leaf, device: torch.device) -> torch.Tensor:
@@ -65,6 +108,7 @@ class Trainer:
         self.slowdown = slowdown
         self.rng = torch.Generator().manual_seed(seed)  # handed to loss_fn
         self.rng_py = _random.Random(seed)
+        self._train_step = make_train_step(loss_fn, optimizer)
         self.log: list[dict] = []
         self.crashed = False
 
@@ -81,23 +125,6 @@ class Trainer:
             raise ValueError("set_params: tree structure differs from the trainer's")
         for own, new in zip(tree_leaves(self.params), tree_leaves(params)):
             own.copy_(as_tensor(new))
-
-    def _grads(self, batch: dict) -> tuple[PyTree, torch.Tensor, dict]:
-        """(grads as a tree like params, loss, metrics) for one batch. The
-        parameters track gradients only inside this call; a leaf the loss
-        does not use gets a zero gradient, as under ``jax.grad``."""
-        leaves_with_paths, treedef = tree_flatten_with_path(self.params)
-        leaves = [leaf for _, leaf in leaves_with_paths]
-        for leaf in leaves:
-            leaf.requires_grad_(True)
-        try:
-            loss, metrics = self.loss_fn(self.params, batch, self.rng)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        finally:
-            for leaf in leaves:
-                leaf.requires_grad_(False)
-        return tree_unflatten(treedef, grads), loss.detach(), metrics
 
     def _to_device(self, batch: dict) -> dict:
         if self.device.type != "cuda":
@@ -119,15 +146,13 @@ class Trainer:
         for i, batch in enumerate(batches):
             if steps is not None and i >= steps:
                 break
-            grads, loss, metrics = self._grads(self._to_device(batch))
-            updates, self.opt_state = self.optimizer.update(grads, self.opt_state, self.params)
-            self.params = apply_updates(self.params, updates)
+            self.params, self.opt_state, metrics = self._train_step(
+                self.params, self.opt_state, self._to_device(batch), self.rng)
             if self.slowdown:
                 time.sleep(self.slowdown)
             self.step += 1
-            metrics = {**metrics, "loss": loss}
             names = list(metrics)
-            step_metrics.append(torch.stack([metrics[k].detach().float() for k in names]))
+            step_metrics.append(torch.stack([metrics[k].float() for k in names]))
         count = len(step_metrics)
         sums = (torch.stack(step_metrics).cpu().double().sum(0).tolist()
                 if step_metrics else [])

@@ -504,3 +504,42 @@ def test_ssd_f32_still_runs_the_fma_kernel(cuda):
     want_y, _ = ssd_chunked(x, dA, Bm[:, :, None].expand(wide), Cm[:, :, None].expand(wide), 128)
     torch.cuda.synchronize()
     torch.testing.assert_close(got_y, want_y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,S", [("pythia-14m", 64), ("pythia-14m", 1280),
+                                    ("mamba2-130m", 96)])
+def test_training_forward_on_the_card_reaches_no_forward_only_kernel(cuda, arch, S):
+    """A training loss (use_flash=False, remat on) on CUDA tensors launches
+    none of the forward-only kernels and differentiates: loss and gradients
+    equal the CPU's at the reference's 1e-4 (S = 1280 runs chunked_sdpa).
+    Serving's bulk prefill of the same model launches one a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import build_model
+    from repro_torch.training import value_and_grad
+
+    def launches():
+        return fk.LAUNCHES["flash_attention"] + sk.LAUNCHES["ssd_scan"]
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, S + 1), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    on_card = lambda tree: tree_map(lambda t: t.to(cuda), tree)  # noqa: E731
+    loss_fn = lambda p, b: model.loss(p, b, remat=True)  # noqa: E731
+    before = launches()
+    (loss, _), grads = value_and_grad(loss_fn, on_card(params), on_card(batch))
+    torch.cuda.synchronize()
+    assert launches() == before
+    (want, _), want_grads = value_and_grad(loss_fn, params, batch)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-4, atol=1e-4)
+    for got, ref in zip(tree_leaves(grads), tree_leaves(want_grads)):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+    with torch.inference_mode():
+        model.prefill(on_card(params), on_card(batch)["tokens"],
+                      model.init_cache(2, S, device=cuda))
+    torch.cuda.synchronize()
+    assert launches() == before + cfg.n_layers
