@@ -28,7 +28,17 @@ main paths end to end:
   ``decode_attention`` per token);
 * the same for the reference's serving default, mamba2-130m at full width
   (bf16, all 24 layers), with batches of 8 prompts x 2048 tokens (``ssd_scan``
-  in every layer of the bulk prefill).
+  in every layer of the bulk prefill);
+* the two LM examples: ``repro_torch.examples.federated_llm`` at its full
+  widths (three async nodes train a 63.68M-parameter LoRA decoder through a
+  ``delta(chain=4)`` store, then federate the adapters alone) and
+  ``repro_torch.examples.federated_serving`` whole (two trainers federate
+  pythia-14m while a serving node hot-swaps their aggregates under traffic,
+  its served tokens held against the plain f32 model);
+* the rest of the decoder zoo through the serving path, at full width in
+  bf16 with depth cut: llama4-scout (MoE), recurrentgemma-9b (RG-LRU and
+  windowed attention) and minicpm3-4b (MLA, plain attention), each also held
+  bulk-vs-loop and card-vs-CPU.
 
 Prints one JSON line per phase, then the card's name and power limit, the
 kernel summary and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -99,6 +109,45 @@ CONSIST_LAYERS, CONSIST_B, CONSIST_S, CONSIST_NEW = 4, 4, 128, 16
 # chunks of 256 and a partial one).
 SSM_ARCH, SSM_B, SSM_S, SSM_NEW = "mamba2-130m", 8, 2048, 64
 SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW = 4, 1000, 16
+# The rest of the decoder zoo, served as `serving` serves granite: full width,
+# bf16, weights from a seed, batches of ZOO_B prompts x the model's prompt
+# length decoding ZOO_NEW greedy tokens, one hot swap. Depth is the only cut
+# (arch, layers, prompt): llama4-scout (MoE) to one layer — the serving path
+# holds ~20 B of host memory a parameter (two f32 standby buffers, the store's
+# f32 blob and its decoded flat; granite's 2.53 B parameters peaked at 60 GB
+# RSS), so two layers' 5.44 B parameters would need ~110 GB of the 96 GiB
+# host; recurrentgemma-9b to one (rglru, rglru, attn) group, its 3,072-token
+# prompt past the 2,048 window, so the window mask and the ring's wrap both
+# run; minicpm3-4b (MLA) to 4 layers.
+ZOO = [("llama4-scout-17b-a16e", 1, 512), ("recurrentgemma-9b", 3, 3072), ("minicpm3-4b", 4, 512)]
+ZOO_B, ZOO_NEW = 4, 32
+# The zoo's GQA attention layers, where both kernels are also timed (arch, S,
+# KV, G, hd, window, ring C): llama4-scout's and recurrentgemma-9b's.
+ZOO_ATTENTION = [("llama4-scout-17b-a16e", 512, 8, 5, 128, 0, 512 + ZOO_NEW),
+                 ("recurrentgemma-9b", 3072, 1, 16, 256, 2048, 2048)]
+# Bulk prefill vs the token-at-a-time loop on the card, f32 at full width and
+# one pattern group: ZOO_LOOP_B prompts of each model's ZOO_LOOP_S tokens. The
+# MoE prompt keeps B x S at 64 tokens: above that the bulk prefill takes the
+# Switch capacity and drops, where each loop step keeps every choice (the
+# reference's bulk-vs-loop test leaves MoE out). recurrentgemma's window is
+# cut to ZOO_LOOP_WINDOW there so the ring wraps within a short loop.
+ZOO_LOOP_B, ZOO_LOOP_NEW, ZOO_LOOP_WINDOW = 2, 8, 256
+ZOO_LOOP_S = {"llama4-scout-17b-a16e": 32, "recurrentgemma-9b": 300, "minicpm3-4b": 64}
+# Card vs CPU at reduced(), f32: greedy tokens equal, the prefill's logits
+# within ZOO_CPU_TOL of their largest magnitude. 2 x 80 tokens: past the
+# reduced window of 64 and past the MoE's 64-token capacity rule.
+ZOO_CPU_B, ZOO_CPU_S, ZOO_CPU_NEW, ZOO_CPU_TOL = 2, 80, 8, 2e-5
+# The two LM examples (repro_torch.examples): federated_llm at its full
+# widths, 3 nodes x FED_LLM_EPOCHS epochs (the example's 10 cut to 2) x 30
+# steps, with delta(chain=4) and adapters-only; federated_serving whole.
+FED_LLM_EPOCHS = 2
+FED_LLM_ADAPTER_SHARE = 0.01  # an adapters-only push, over a full run's push
+# federated_serving's served tokens, held against the plain f32 model on the
+# same weights (teacher-forced): each token's logit within SERVED_TOL of the
+# position's largest logit magnitude below the best (bf16's attention
+# tolerance). The first batch on each of the first SERVED_SAMPLES weight sets.
+SERVED_TOL, SERVED_SAMPLES = 2e-2, 2
+
 # ssd_scan checks: the reference's sweeps (tests/test_kernels.py:186-190, f32,
 # its 1e-4), then model layout with B/C shared by the heads.
 SSD_SWEEPS = [(2, 128, 64, 32, 32), (3, 256, 64, 128, 64), (1, 512, 128, 64, 128),
@@ -116,13 +165,17 @@ FLASH_CHECK = [  # B, S, KV, G, hd, window
     (2, 200, 2, 16, 64, 50),    # G 16, windowed, ragged
     (1, 96, 1, 64, 64, 0),      # the widest group: one position per q tile
     (1, 64, 1, 32, 256, 16),    # the widest group at hd 256, windowed
-    (1, 1, 2, 4, 64, 0)]        # S = 1
+    (1, 1, 2, 4, 64, 0),        # S = 1
+    (ZOO_B, 512, 8, 5, 128, 0),     # llama4-scout's serving prefill
+    (ZOO_B, 3072, 1, 16, 256, 2048)]  # recurrentgemma-9b's: KV 1, G 16, windowed
 DECODE_CHECK = [  # B, KV, G, hd, C
     (2, 2, 4, 64, 1024), (1, 8, 1, 128, 512), (3, 1, 6, 64, 2048), (1, 2, 2, 256, 256),
     (SERVE_B, 8, 4, 64, SERVE_S + SERVE_NEW), (SERVE_B, 8, 4, 64, 32768), (2, 8, 4, 64, 1000),
     (2, 8, 4, 64, 1), (1, 2, 5, 128, 63), (2, 2, 16, 64, 1000), (1, 16, 1, 256, 576),
     (2, 2, 4, 32, 100),
-    (1, 1, 16, 256, 576)]       # the largest block: G 16 at hd 256 (recurrentgemma-9b's group)
+    (1, 1, 16, 256, 576),       # the largest block: G 16 at hd 256 (recurrentgemma-9b's group)
+    (ZOO_B, 8, 5, 128, 512 + ZOO_NEW),  # llama4-scout's serving decode
+    (ZOO_B, 1, 16, 256, 2048)]  # recurrentgemma-9b's: its ring of 2,048
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference's own
 # bf16's atol is also scaled by max|want| where that is below 1: at C = 32,768
 # the outputs are ~0.01, under a plain 2e-2, which zeros would meet.
@@ -138,8 +191,12 @@ _F32_FLOPS = [("H100 PCIe", 51e12), ("H100", 67e12), ("H200", 67e12)]
 _BF16_FLOPS = [("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12), ("H200", 989e12)]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the script's own seconds at its end."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields}), flush=True)
 
 
 def card_rate(table, name: str) -> tuple[float, str]:
@@ -254,16 +311,31 @@ def sdpa_inputs(q, k, v):
         return qh, kh.repeat_interleave(G, 1), vh.repeat_interleave(G, 1), {}
 
 
+def federated_serving_shapes() -> tuple[tuple, tuple]:
+    """The attention shapes of ``federated_serving``'s served batches, from
+    the example's constants and pythia-14m's config: flash (B, S, KV, G, hd,
+    window) and decode (B, KV, G, hd, C), C the ring of prompt + new tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.federated_serving import NEW_TOKENS, PROMPT_LEN, PROMPTS
+
+    cfg = get_config("pythia-14m")
+    KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim_
+    return (PROMPTS, PROMPT_LEN, KV, G, hd, 0), (PROMPTS, KV, G, hd, PROMPT_LEN + NEW_TOKENS)
+
+
 def check_attention(dev, gen) -> tuple[list, dict]:
     """Each attention kernel against its plain version at the reference's
-    sweep shapes, the serving path's and the reach of the redesigns (hd 32 to
-    256, G 1 to 64, ragged S and C, windows, a split of the cache whose slots
-    are all invalid, a ring with no valid slot), f32 and bf16; each call
-    launches its kernel once. Raises on a miss."""
+    sweep shapes, the serving paths' (``federated_serving``'s included) and
+    the reach of the redesigns (hd 32 to 256, G 1 to 64, ragged S and C,
+    windows, a split of the cache whose slots are all invalid, a ring with no
+    valid slot), f32 and bf16; each call launches its kernel once. Raises on
+    a miss."""
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref, split_bounds
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    served_flash, served_decode = federated_serving_shapes()
 
     checks, max_err = [], {"flash_attention": 0.0, "decode_attention": 0.0}
     wrappers = {"flash_attention": fk, "decode_attention": dk}
@@ -286,13 +358,13 @@ def check_attention(dev, gen) -> tuple[list, dict]:
                                  f"over rtol {tol} / atol {atol}")
 
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, KV, G, hd, window in FLASH_CHECK:
+        for B, S, KV, G, hd, window in FLASH_CHECK + [served_flash]:
             q = torch.randn(B, S, KV, G, hd, device=dev, generator=gen).to(dtype)
             k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen).to(dtype) for _ in range(2))
             hold("flash_attention", lambda: fk.flash_attention(q, k, v, window=window),
                  flash_attention_ref(q, k, v, window=window), dtype,
                  f"B={B} S={S} KV={KV} G={G} hd={hd} window={window}")
-        for B, KV, G, hd, C in DECODE_CHECK:
+        for B, KV, G, hd, C in DECODE_CHECK + [served_decode]:
             q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(dtype)
             k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(dtype) for _ in range(2))
             valid = torch.rand(C, device=dev, generator=gen) < 0.7
@@ -325,56 +397,92 @@ def check_attention(dev, gen) -> tuple[list, dict]:
     return checks, max_err
 
 
-def time_attention(dev, gen, card) -> list:
-    """Device times (``time_ms``) of each attention kernel, its plain version
-    and SDPA, at the serving path's shapes (bf16), beside the bound.
-    flash_attention's inputs are not rotated: in a prefill they were just
-    written by the projections, and at 42 MB they are about the L2's size.
-    decode_attention's are (``cold_sets``): a decode step reads each layer's
-    cache once."""
+def time_flash(dev, gen, card, B: int, S: int, KV: int, G: int, hd: int,
+               window: int = 0) -> dict:
+    """flash_attention's device time (``time_ms``) at one bf16 causal shape,
+    beside its plain version, SDPA (with the window as a mask where there is
+    one) and its bound. The inputs are not rotated: in a prefill they were
+    just written by the projections."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import causal_mask
+
+    bf16 = torch.bfloat16
+    q = torch.randn(B, S, KV, G, hd, device=dev, generator=gen).to(bf16)
+    k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
+    qh, kh, vh, gqa = sdpa_inputs(q, k, v)
+    if window:
+        mask = causal_mask(S, window, device=dev)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, **gqa)  # noqa: E731
+        library = "F.scaled_dot_product_attention(attn_mask=window mask)"
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, **gqa)  # noqa: E731
+        library = "F.scaled_dot_product_attention(is_causal=True)"
+    nbytes = sum(t.numel() * 2 for t in (q, k, v))
+    return {
+        "name": "flash_attention",
+        "shape": f"B={B} S={S} KV={KV} G={G} hd={hd} window={window} causal bf16",
+        "inputs": f"one set ({nbytes / 1e6:.0f} MB), not rotated",
+        "kernel_ms": time_ms(lambda: fk.flash_attention(q, k, v, window=window)),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, window=window)),
+        "library_ms": time_ms(sdpa), "library": library,
+        **attn_bound("flash_attention", card, B=B, T=S, KV=KV, G=G, hd=hd, itemsize=2,
+                     pairs=visible_pairs(S, window))}
+
+
+def time_decode(dev, gen, card, B: int, C: int, KV: int, G: int, hd: int) -> tuple[dict, list]:
+    """decode_attention's device time at one bf16 shape with every slot
+    valid, beside its plain version, SDPA with the mask and its bound. The
+    inputs rotate (``cold_sets``): a decode step reads each layer's cache
+    once. Returns the timing and the input sets."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    bf16, timings = torch.bfloat16, []
+    bf16 = torch.bfloat16
+
+    def make():
+        q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(bf16)
+        k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
+        valid = torch.ones(C, dtype=torch.bool, device=dev)
+        return (q, k, v, valid, *sdpa_inputs(q[:, None], k, v))
+    sets = cold_sets(make, 2 * B * C * KV * hd * 2)
+    return {
+        "name": "decode_attention",
+        "shape": f"B={B} C={C} KV={KV} G={G} hd={hd} bf16, all slots valid",
+        "inputs": f"{len(sets)} sets rotated (cold L2)",
+        "n_split": dk.split_count(B, KV, C, dk.sm_count(dev)),
+        "kernel_ms": time_ms(lambda q, k, v, valid, *_: dk.decode_attention(q, k, v, valid), sets),
+        "plain_ms": time_ms(lambda q, k, v, valid, *_: decode_attention_ref(q, k, v, valid), sets),
+        "library_ms": time_ms(lambda q, k, v, valid, qh, kh, vh, gqa: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=valid[None, None, None], **gqa), sets),
+        "library": "F.scaled_dot_product_attention(attn_mask=valid)",
+        **attn_bound("decode_attention", card, B=B, T=C, KV=KV, G=G, hd=hd, itemsize=2,
+                     pairs=C)}, sets
+
+
+def time_attention(dev, gen, card) -> list:
+    """Device times of each attention kernel, its plain version and SDPA,
+    beside the bound, at the serving path's shapes (bf16): granite's prefill
+    and decode (at C = 576 and 32,768, with the decode split sweep), then
+    the attention layers of ``serving_zoo``'s models (ZOO_ATTENTION)."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+
     B, S, KV, G, hd = SERVE_B, SERVE_S, 8, 4, 64
-    q = torch.randn(B, S, KV, G, hd, device=dev, generator=gen).to(bf16)
-    k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
-    qh, kh, vh, gqa = sdpa_inputs(q, k, v)
-    timings.append({
-        "name": "flash_attention", "shape": f"B={B} S={S} KV={KV} G={G} hd={hd} causal bf16",
-        "inputs": "one set (42 MB), not rotated",
-        "kernel_ms": time_ms(lambda: fk.flash_attention(q, k, v)),
-        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, **gqa)),
-        "library": "F.scaled_dot_product_attention(is_causal=True)",
-        **attn_bound("flash_attention", card, B=B, T=S, KV=KV, G=G, hd=hd, itemsize=2,
-                     pairs=visible_pairs(S, 0))})
-    del q, k, v, qh, kh, vh
+    timings = [time_flash(dev, gen, card, B, S, KV, G, hd)]
     for C in (SERVE_S + SERVE_NEW, 32768):
-        def make():
-            q = torch.randn(B, KV, G, hd, device=dev, generator=gen).to(bf16)
-            k, v = (torch.randn(B, C, KV, hd, device=dev, generator=gen).to(bf16) for _ in range(2))
-            valid = torch.ones(C, dtype=torch.bool, device=dev)
-            return (q, k, v, valid, *sdpa_inputs(q[:, None], k, v))
-        sets = cold_sets(make, 2 * B * C * KV * hd * 2)
-        valid = sets[0][3]
-        timings.append({
-            "name": "decode_attention", "shape": f"B={B} C={C} KV={KV} G={G} hd={hd} bf16, all slots valid",
-            "inputs": f"{len(sets)} sets rotated (cold L2)",
-            "n_split": dk.split_count(B, KV, C, dk.sm_count(dev)),
-            "kernel_ms": time_ms(lambda q, k, v, valid, *_: dk.decode_attention(q, k, v, valid), sets),
-            "plain_ms": time_ms(lambda q, k, v, valid, *_: decode_attention_ref(q, k, v, valid), sets),
-            "library_ms": time_ms(lambda q, k, v, valid, qh, kh, vh, gqa: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=valid[None, None, None], **gqa), sets),
-            "library": "F.scaled_dot_product_attention(attn_mask=valid)",
-            **attn_bound("decode_attention", card, B=B, T=C, KV=KV, G=G, hd=hd, itemsize=2,
-                         pairs=int(valid.sum()))})
-        timings[-1]["by_n_split"] = split_sweep(dk, sets, B, KV, G, hd)
-        del sets, valid
+        timing, sets = time_decode(dev, gen, card, B, C, KV, G, hd)
+        timing["by_n_split"] = split_sweep(dk, sets, B, KV, G, hd)
+        timings.append(timing)
+        del sets
+    for arch, S, KV, G, hd, window, C in ZOO_ATTENTION:
+        timings.append({"model": arch, **time_flash(dev, gen, card, ZOO_B, S, KV, G, hd, window)})
+        timing, sets = time_decode(dev, gen, card, ZOO_B, C, KV, G, hd)
+        timings.append({"model": arch, **timing})
+        del sets
     return timings
 
 
@@ -686,13 +794,15 @@ def host_memory(n_params: int) -> dict:
 
 
 def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
-            kernels: dict) -> tuple[dict, dict]:
-    """The serving tier end to end, ``arch`` at full width in bf16: publish →
-    deploy → batches of ``batch`` prompts x ``prompt`` tokens, bulk prefill +
+            kernels: dict, n_layers: int | None = None) -> tuple[dict, dict]:
+    """The serving tier end to end, ``arch`` at full width in bf16 (at
+    ``n_layers`` where given, else its published depth): publish → deploy →
+    batches of ``batch`` prompts x ``prompt`` tokens, bulk prefill +
     ``new_tokens`` greedy tokens → a second push hot-swapped in under traffic
     → a batch on the new weights. ``kernels`` maps each kernel of the path to
     its wrapper module, whose launch count is set to 0 just before the traffic
-    and read just after. Returns (phase record, launches)."""
+    and read just after. The store's blobs are deleted once the run has
+    passed. Returns (phase record, launches)."""
     import gc
     import resource
     import threading
@@ -702,11 +812,13 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
     from repro_torch.api import connect, serve
     from repro_torch.configs import get_config
     from repro_torch.core.serialize import NodeUpdate
+    from repro_torch.core.store import make_folder
     from repro_torch.core.tree import LeafSpec, tree_map
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
+    published = get_config(arch)
+    cfg = published.replace(n_layers=n_layers) if n_layers else published
     model = build_model(cfg)
     n_params = LeafSpec.of(model.abstract()).num_params
     host = host_memory(n_params)
@@ -816,6 +928,8 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
     decode_s = sum(b - a for _, m in batches for a, b in m["decode_spans"])
     record = {
         "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "reduced": ({"n_layers": [published.n_layers, cfg.n_layers]}
+                    if cfg.n_layers != published.n_layers else {}),
         "params": n_params, "batch": batch, "prompt": prompt,
         "new_tokens": new_tokens, "batches": len(batches),
         "mid_swap_batches_on_counter_0": sum(1 for c in kept if c == 0) - 1,
@@ -834,6 +948,9 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
         "device_memory_at_start_bytes": mem_at_start, **host,
         "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         "launches": launches, "profile": profiled}
+    folder = make_folder(uri)  # the process-wide named folder: free its blobs
+    for key in list(folder.keys()):
+        folder.delete(key)
     return record, launches
 
 
@@ -1667,6 +1784,300 @@ def train_ssm(dev) -> dict:
             "profile_step": profiled, "card_vs_cpu": check}
 
 
+def attention_layers(cfg) -> int:
+    """Layers of ``cfg`` that run GQA attention (the kernels' path): ``attn``
+    and ``moe_attn`` blocks unless the model's attention is MLA. Layers take
+    the pattern in order, group after group, then its head as a tail."""
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    return sum(k in ("attn", "moe_attn") and not (k == "attn" and cfg.attention == "mla")
+               for k in kinds)
+
+
+def zoo_checks(dev, arch: str, kernels: dict) -> dict:
+    """The two correctness checks of one `serving_zoo` model. On the card, f32
+    at full width and one pattern group: the bulk prefill + decode
+    (``serve_batch``) gives the greedy tokens of the token-at-a-time loop
+    (``serve_batch_loop``), the prefill launching ``flash_attention`` once per
+    attention layer and the loop never. Then the card against the port on the
+    CPU at ``reduced()`` in f32, from the same weights: equal greedy tokens,
+    and the prefill's logits within ZOO_CPU_TOL of their largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import serve_batch, serve_batch_loop
+    from repro_torch.models import build_model
+
+    published = get_config(arch)
+    cfg = published.replace(dtype="float32", n_layers=len(published.pattern))
+    cut = {"dtype": "float32", "n_layers": [published.n_layers, cfg.n_layers]}
+    if cfg.sliding_window:
+        cut["sliding_window"] = [cfg.sliding_window, ZOO_LOOP_WINDOW]
+        cfg = cfg.replace(sliding_window=ZOO_LOOP_WINDOW)
+    params = build_model(cfg).init(1, device=dev)
+    S = ZOO_LOOP_S[arch]
+    prompts = torch.randint(0, cfg.vocab_size, (ZOO_LOOP_B, S), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+    attn_layers = attention_layers(cfg)
+    flash = kernels["flash_attention"]
+    before = flash.LAUNCHES["flash_attention"]
+    fast = serve_batch(cfg, params, prompts, new_tokens=ZOO_LOOP_NEW).cpu()
+    bulk_launches = flash.LAUNCHES["flash_attention"] - before
+    slow = serve_batch_loop(cfg, params, prompts, new_tokens=ZOO_LOOP_NEW).cpu()
+    loop_launches = flash.LAUNCHES["flash_attention"] - before - bulk_launches
+    if bulk_launches != attn_layers or loop_launches:
+        raise AssertionError(f"{arch}: flash_attention launched {bulk_launches} times in the "
+                             f"bulk prefill (want {attn_layers}), {loop_launches} in the loop")
+    if not torch.equal(fast, slow):
+        raise AssertionError(f"{arch}: serve_batch != serve_batch_loop on the card:\n{fast}\n{slow}")
+    del params
+    loop = {"cut": cut, "batch": ZOO_LOOP_B, "prompt": S, "new_tokens": ZOO_LOOP_NEW,
+            "tokens_equal": True, "flash_launches_bulk": bulk_launches}
+
+    rcfg = published.reduced()
+    cpu_params = build_model(rcfg).init(2, device="cpu")
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    prompts = torch.randint(0, rcfg.vocab_size, (ZOO_CPU_B, ZOO_CPU_S), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(2))
+    model = build_model(rcfg)
+    with torch.inference_mode():
+        got, _ = model.prefill(params, prompts.to(dev),
+                               model.init_cache(ZOO_CPU_B, ZOO_CPU_S, device=dev))
+        want, _ = model.prefill(cpu_params, prompts,
+                                model.init_cache(ZOO_CPU_B, ZOO_CPU_S, device="cpu"))
+    scale = float(want.abs().max())
+    rel = float((got.cpu() - want).abs().max()) / scale
+    toks_card = serve_batch(rcfg, params, prompts, new_tokens=ZOO_CPU_NEW).cpu()
+    toks_cpu = serve_batch(rcfg, cpu_params, prompts, new_tokens=ZOO_CPU_NEW)
+    if not (torch.isfinite(got).all() and rel <= ZOO_CPU_TOL):
+        raise AssertionError(f"{arch} reduced: prefill logits card vs CPU {rel} of max {scale}")
+    if not torch.equal(toks_card, toks_cpu):
+        raise AssertionError(f"{arch} reduced: greedy tokens card vs CPU:\n{toks_card}\n{toks_cpu}")
+    return {"bulk_vs_loop": loop,
+            "card_vs_cpu": {"config": rcfg.name, "dtype": rcfg.dtype, "batch": ZOO_CPU_B,
+                            "prompt": ZOO_CPU_S, "new_tokens": ZOO_CPU_NEW, "tokens_equal": True,
+                            "logits_max_rel_err": rel, "logits_max_abs": scale,
+                            "tol": ZOO_CPU_TOL}}
+
+
+def serving_zoo(dev, kernels: dict) -> tuple[dict, dict]:
+    """The rest of the decoder zoo through `serving`'s path (publish →
+    ``api.serve`` → traffic → a hot swap), one record per model of ZOO, each
+    with its two ``zoo_checks``; the launches of ``flash_attention`` (one per
+    attention layer per prefill) and ``decode_attention`` (one per attention
+    layer per decoded token) asserted per model (none for MLA, which runs
+    plain attention). grok-1, the zoo's other MoE model, must still refuse the
+    card: its logit softcap has no kernel. Returns (records, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    records, launches = [], {name: 0 for name in kernels}
+    for arch, n_layers, prompt in ZOO:
+        record, got = serving(dev, arch, ZOO_B, prompt, ZOO_NEW, kernels, n_layers=n_layers)
+        attn_layers = attention_layers(get_config(arch).replace(n_layers=n_layers))
+        want = {"flash_attention": attn_layers * record["batches"],
+                "decode_attention": attn_layers * (ZOO_NEW - 1) * record["batches"]}
+        if got != want:
+            raise AssertionError(f"{arch}: launched {got}, want one flash_attention per "
+                                 f"attention layer per prefill and one decode_attention per "
+                                 f"attention layer per token: {want}")
+        record["attention_layers"] = attn_layers
+        record["checks"] = zoo_checks(dev, arch, kernels)
+        records.append(record)
+        for name in launches:
+            launches[name] += got[name]
+    grok = get_config("grok-1-314b").reduced()
+    try:
+        serve_batch(grok, build_model(grok).init(0, device=dev),
+                    torch.zeros((1, 4), dtype=torch.int32), new_tokens=2)
+    except NotImplementedError as e:
+        grok_refusal = str(e)
+    else:
+        raise AssertionError("grok-1 (attn_logit_softcap 30) was served on the card")
+    return {"card": torch.cuda.get_device_name(0), "models": records,
+            "grok_softcap_on_card": grok_refusal}, launches
+
+
+def federated_llm_phase(dev, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
+    """``repro_torch.examples.federated_llm.main`` at the example's full
+    widths (fedlm-95m: 12 layers, d_model 512, vocab 50,304, f32, LoRA rank
+    8), 3 nodes x FED_LLM_EPOCHS epochs x 30 steps, once with the default
+    ``delta(chain=4)`` and once ``--adapters-only``, each on a named memory://
+    store. Asserts, per run: every node finite, the nodes aggregated,
+    ``fed_agg`` launched, and ``fed_agg`` over the store's pulled deposits
+    equal to its plain version (``check_deposits``); adapters-only: each push
+    after the anchor writes ≤ FED_LLM_ADAPTER_SHARE of a full run's push,
+    and at every aggregate each node's non-adapter leaves come back bit for
+    bit (checked inside its FederatedCallback). Returns (record, launches)."""
+    import contextlib
+    import io
+
+    from repro_torch.core import callback as callback_mod
+    from repro_torch.core.store import WeightStore, make_folder
+    from repro_torch.core.tree import LeafSpec, tree_leaves
+    from repro_torch.examples import federated_llm
+    from repro_torch.models import build_model
+
+    runs, launches = {}, 0
+    personal = {"leaves": 0, "aggregates": 0}
+    original = callback_mod.FederatedCallback.on_epoch_end
+
+    def checked(self, trainer, epoch, logs):
+        spec = LeafSpec.of(trainer.params)
+        keep = [fam is None for fam in spec.family_view(("adapters",)).leaf_names]
+        before = [t.clone() for t, k in zip(tree_leaves(trainer.params), keep) if k]
+        n = self.node.num_aggregations
+        original(self, trainer, epoch, logs)
+        if self.node.num_aggregations > n:
+            after = [t for t, k in zip(tree_leaves(trainer.params), keep) if k]
+            if not all(torch.equal(a, b) for a, b in zip(after, before)):
+                raise AssertionError(f"{self.node.node_id}: a non-adapter leaf changed in an "
+                                     "adapters-only aggregate")
+            personal["leaves"] = len(before)
+            personal["aggregates"] += 1
+
+    for mode in ("delta", "adapters_only"):
+        uri = f"memory://chip-smoke-federated-llm-{mode}"
+        argv = ["--epochs", str(FED_LLM_EPOCHS), "--device", dev.type, "--store", uri]
+        if mode == "adapters_only":
+            argv.append("--adapters-only")
+            callback_mod.FederatedCallback.on_epoch_end = checked
+        fk.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                records = federated_llm.main(argv)
+        finally:
+            callback_mod.FederatedCallback.on_epoch_end = original
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = fk.LAUNCHES["fed_agg"]
+        if run_launches < 1 or sum(r["aggregations"] for r in records) < 1:
+            raise AssertionError(f"{mode}: fed_agg launched {run_launches} times, "
+                                 f"aggregations {[r['aggregations'] for r in records]}")
+        for r in records:
+            if not all(math.isfinite(v) for v in [r["eval_loss"], *r["train_loss"]]):
+                raise AssertionError(f"{mode} {r['node']}: {r}")
+        folder = make_folder(uri)
+        pulled = WeightStore(folder).pull()
+        runs[mode] = {
+            "wall_s": wall, "fed_agg_launches": run_launches,
+            "nodes": [{"node": r["node"], "eval_loss": r["eval_loss"],
+                       "next_token_acc": r["next_token_acc"], "aggregations": r["aggregations"],
+                       "mb_written": r["mb_written"], "mb_read": r["mb_read"],
+                       "push_bytes": r["push_bytes"], "train_loss": r["train_loss"],
+                       "epoch_s": {k: r["spans"]["train"][k] for k in ("min_s", "mean_s", "max_s")},
+                       "aggregate_host_ms_mean": (r["spans"]["aggregate"]["mean_s"] * 1e3
+                                                  if "aggregate" in r["spans"] else None)}
+                      for r in records],
+            "pulled_check": check_deposits(dev, pulled, fk, fed_agg_ref, fed_opt_ref, 19)}
+        for key in list(folder.keys()):  # the process-wide named folder: free its blobs
+            folder.delete(key)
+        launches += run_launches
+    full = [b for n in runs["delta"]["nodes"] for b in n["push_bytes"]]
+    adapters = [b for n in runs["adapters_only"]["nodes"] for b in n["push_bytes"][1:]]
+    share = max(adapters) / (sum(full) / len(full))
+    if share > FED_LLM_ADAPTER_SHARE or personal["aggregates"] < 1:
+        raise AssertionError(f"adapters-only push {max(adapters)} B = {share} of a full push; "
+                             f"personal-leaf checks {personal}")
+    n_params = LeafSpec.of(build_model(federated_llm.CFG).abstract()).num_params
+    return {"config": federated_llm.CFG.name, "params": n_params, "dtype": federated_llm.CFG.dtype,
+            "nodes": 3, "epochs": FED_LLM_EPOCHS, "steps_per_epoch": 30,
+            "reduced": {"epochs": [10, FED_LLM_EPOCHS]}, "runs": runs,
+            "adapter_push_over_full_push": share, "personal_leaf_checks": personal}, \
+        {"fed_agg": launches}
+
+
+def check_served_tokens(cfg, samples: dict) -> list[dict]:
+    """Each kept batch (prompts, served tokens, an f32 copy of the weights it
+    was served on) against the plain f32 model on those weights, on the card,
+    teacher-forced on the served tokens: every token's logit is within
+    SERVED_TOL (of the position's largest logit magnitude) of the best. The
+    plain forward (``use_flash`` off) launches no kernel."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg.replace(dtype="float32"))
+    checks = []
+    for counter, (prompts, tokens, params) in samples.items():
+        S = prompts.shape[1]
+        seq = torch.cat([prompts, tokens[:, :-1]], dim=1)
+        with torch.inference_mode():
+            logits, _ = model.apply(params, seq)
+        ref = logits[:, S - 1:, :cfg.vocab_size]
+        best = ref.amax(dim=-1)
+        got = ref.gather(-1, tokens.long()[..., None])[..., 0]
+        gap = float(((best - got) / ref.abs().amax(dim=-1)).max())
+        checks.append({"counter": counter, "tokens": list(tokens.shape),
+                       "argmax_equal": float((ref.argmax(dim=-1) == tokens).float().mean()),
+                       "max_gap_over_largest": gap, "tol": SERVED_TOL})
+        if not (torch.isfinite(ref).all() and gap <= SERVED_TOL):
+            raise AssertionError(f"served tokens at counter {counter}: a token's logit is "
+                                 f"{gap} of the largest below the plain f32 model's best")
+    return checks
+
+
+def federated_serving_phase(dev, kernels: dict) -> tuple[dict, dict]:
+    """``repro_torch.examples.federated_serving.main`` whole, on the card:
+    two trainers federate pythia-14m (full config, bf16) while a ServingNode
+    deploys and hot-swaps their aggregates under greedy traffic. Asserts ≥ 1
+    swap, the first deploy within the example's 120 s, one
+    ``flash_attention`` per layer per batch and one ``decode_attention`` per
+    layer per decoded token, and the served tokens of the first batch on
+    each of the first SERVED_SAMPLES weight sets against the plain f32 model
+    (``check_served_tokens``, after the launches are read). ``kernels`` holds
+    the wrappers whose launches are counted (the trainers' FedAvg launches
+    ``fed_agg``). Returns (record, launches)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.examples import federated_serving
+    from repro_torch.serving.node import ServingNode
+
+    samples = {}  # counter -> (prompts, tokens, f32 weights), both on the card
+    original = ServingNode._generate_on
+
+    def kept(self, dep, prompts, new_tokens, on_token):
+        out, meta = original(self, dep, prompts, new_tokens, on_token)
+        if dep.counter not in samples and len(samples) < SERVED_SAMPLES:
+            # a copy: a later swap rewrites this weight set's leaves in place
+            samples[dep.counter] = (
+                torch.as_tensor(prompts, device=dev), torch.as_tensor(out, device=dev),
+                tree_map(lambda t: t.to(torch.float32, copy=True), dep.params))
+        return out, meta
+
+    for wrapper in kernels.values():
+        wrapper.reset_launches()
+    out = io.StringIO()
+    ServingNode._generate_on = kept
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = federated_serving.main(["--device", dev.type])
+    finally:
+        ServingNode._generate_on = original
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: wrapper.LAUNCHES[name] for name, wrapper in kernels.items()}
+    stats, batches = result["stats"], result["batches"]
+    cfg = get_config("pythia-14m")
+    want = {"flash_attention": cfg.n_layers * len(batches),
+            "decode_attention": cfg.n_layers * (federated_serving.NEW_TOKENS - 1) * len(batches)}
+    if stats["swaps"] < 1 or result["first_deploy_s"] > federated_serving.FIRST_DEPLOY_S:
+        raise AssertionError(f"swaps {stats['swaps']}, first deploy {result['first_deploy_s']} s")
+    if {k: launches[k] for k in want} != want or launches.get("fed_agg", 0) < 1:
+        raise AssertionError(f"federated_serving launched {launches}, want {want} and fed_agg")
+    served = check_served_tokens(cfg, samples)
+    return {"arch": "pythia-14m", "wall_s": wall, "first_deploy_s": result["first_deploy_s"],
+            "batches": len(batches), "tokens_per_s_per_batch": [b["tokens_per_s"] for b in batches],
+            "counters_served": [b["counter"] for b in batches], "swaps": stats["swaps"],
+            "staleness_mean": stats["staleness_mean"], "staleness_max": stats["staleness_max"],
+            "swap_ms_p50": stats["swap_ms_p50"], "swap_ms_p99": stats["swap_ms_p99"],
+            "served_token_checks": served, "trainers": result["trainers"],
+            "launches": launches}, launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1893,11 +2304,22 @@ def main() -> None:
         max_err[name] = max(max_err[name], *(e[name] for e in deposit_errs))
     emit("train_ssm", card=card, nvidia_smi=smi, **train_ssm(dev))
 
-    # -- 16. serving_consistency / 17. serving: the port's second main path -----
+    # -- 16. federated_llm / 17. federated_serving: the two LM examples --------
+    record, llm_launches = federated_llm_phase(dev, fk, fed_agg_ref, fed_opt_ref)
+    emit("federated_llm", card=card, nvidia_smi=smi, **record)
+    max_err["fed_agg"] = max(max_err["fed_agg"], *(
+        run["pulled_check"]["max_abs_err"]["fed_agg"] for run in record["runs"].values()))
+    launches["fed_agg"] += llm_launches["fed_agg"]
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
+    record, fs_launches = federated_serving_phase(
+        dev, {"flash_attention": flash_kernel, "decode_attention": dec_kernel, "fed_agg": fk})
+    emit("federated_serving", card=card, nvidia_smi=smi, **record)
+    launches["fed_agg"] += fs_launches["fed_agg"]
+
+    # -- 18. serving_consistency / 19. serving: the port's second main path -----
     emit("serving_consistency", **serving_consistency(
         dev, SERVE_ARCH, CONSIST_B, CONSIST_S, CONSIST_NEW, flash_kernel, (2, 64)))
     record, serving_launches = serving(dev, SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW,
@@ -1909,11 +2331,12 @@ def main() -> None:
         raise AssertionError(f"serving launched {serving_launches}, want one flash_attention per "
                              f"layer per prefill and one decode_attention per layer per token: {want}")
     emit("serving", **record)
-    launches.update(serving_launches)
+    for name in serving_launches:
+        launches[name] = fs_launches[name] + serving_launches[name]
     profiles = {"flash_attention": record["profile"]["prefill"],
                 "decode_attention": record["profile"]["prefill_and_16_tokens"]}
 
-    # -- 18. serving_ssm_consistency / 19. serving_ssm: Mamba2, the reference's
+    # -- 20. serving_ssm_consistency / 21. serving_ssm: Mamba2, the reference's
     #        serving default, through the same entry points -------------------------
     emit("serving_ssm_consistency", **serving_consistency(
         dev, SSM_ARCH, SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW, ssd_kernel,
@@ -1925,6 +2348,13 @@ def main() -> None:
     emit("serving_ssm", **record)
     launches.update(ssm_launches)
     profiles["ssd_scan"] = record["profile"]["prefill"]
+
+    # -- 22. serving_zoo: MoE, RG-LRU and MLA decoders through the same path ----
+    record, zoo_launches = serving_zoo(dev, {"flash_attention": flash_kernel,
+                                             "decode_attention": dec_kernel})
+    emit("serving_zoo", nvidia_smi=smi, **record)
+    for name in zoo_launches:
+        launches[name] += zoo_launches[name]
     emit("timer_check", **timer_check(timings, profiles))
 
     # -- summary ----------------------------------------------------------------

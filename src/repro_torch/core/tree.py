@@ -150,7 +150,9 @@ def as_tensor(leaf) -> torch.Tensor:
     arr = np.asarray(leaf)
     if arr.dtype.name in NARROW_FLOATS:
         arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    if not arr.flags.c_contiguous:  # (np.ascontiguousarray would make a 0-d leaf 1-d)
+        arr = np.ascontiguousarray(arr)
+    return torch.from_numpy(arr)
 
 
 def _shape_dtype(leaf) -> tuple[tuple[int, ...], str]:

@@ -74,16 +74,20 @@
 //   accumulate), fragments by ldmatrix (mma_bf16.cuh). C.B^T lands in an
 //   accumulator fragment, two 16-key blocks a step (four independent
 //   accumulator chains); the decay is applied there in registers, selected
-//   for j <= i, and the fragment rounded to bf16 is the A fragment of the
-//   product with x (as flash's P.V). The decay's exponent is the difference
+//   for j <= i, and the fragment, split into two bf16 terms hi = bf16(s) and
+//   lo = bf16(s - hi), gives the A fragments of two products with x (as
+//   flash's P.V, twice). Rounded to one bf16 term (2^-9), the scores miss
+//   y's tolerance (2e-2, atol scaled by min(1, max|y|)) at outputs near zero
+//   on slowly decaying heads, which sum the most scores
+//   (tests/test_torch_ssd_split.py). The decay's exponent is the difference
 //   of two running sums of dA kept in f64 and stored as f32 pairs hi + lo of
 //   cums * log2(e): (hi_i - hi_j) + (lo_i - lo_j) is the f64 difference to
-//   within an ulp of f32, and ex2.approx (relative error ~2^-22) takes it;
-//   the scores are rounded to bf16 (2^-9) right after. (With the f64
-//   difference converted per element, the decay took over half of the
-//   intra-chunk term's time: f64 arithmetic and f64-to-f32 conversions run
-//   at 1/2 and 1/8 of the f32 rate.)
-//   C.state^T takes the entering state rounded to bf16 (y is bf16), in f32
+//   within an ulp of f32, and ex2.approx (relative error ~2^-22) takes it.
+//   (With the f64 difference converted per element, the decay took over
+//   half of the intra-chunk term's time: f64 arithmetic and f64-to-f32
+//   conversions run at 1/2 and 1/8 of the f32 rate.)
+//   C.state^T takes the entering state as bf16 hi + lo likewise (two
+//   products, both terms in the f32 state's shared memory), in f32
 //   accumulators scaled by exp(cums) after; the carried state stays f32.
 //   The state update's operand x o exp(cums_last - cums) is split into two
 //   bf16 terms, hi = bf16(v) and lo = bf16(v - hi), and both are multiplied
@@ -409,6 +413,8 @@ struct MmaShape {
   static constexpr size_t wsum_off = dq_off + sizeof(float) * MAX_CLUSTER;       // [8] f64
   static constexpr size_t bytes = wsum_off + sizeof(double) * MMA_THREADS / 32;
   static_assert(bytes <= MAX_SMEM, "a block must fit an SM");
+  static_assert(2 * sizeof(bf16) * LDB <= sizeof(float) * LDS,
+                "the entering state's bf16 hi and lo fit in its f32 rows");
   static_assert(b_off % 16 == 0 && st_off % 16 == 0 && cums_off % 16 == 0 && wsum_off % 8 == 0,
                 "alignment");
 };
@@ -418,28 +424,32 @@ __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
 }
 
 // 2^x, relative error ~2^-22 (PTX ex2.approx): for the scores, which are
-// rounded to bf16 (2^-9) right after.
+// then split into bf16 hi + lo (~2^-17).
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-// hi + lo = bf16 pair * (w.x, w.y), each rounded to bf16: the two bf16 terms
-// of an f32 product.
-__device__ __forceinline__ void split_scaled(uint32_t pair, float2 w, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(&pair);
-  const float v0 = __low2float(v2) * w.x, v1 = __high2float(v2) * w.y;
+// The f32 pair (v0, v1) as two bf16 pairs, hi = bf16(v) and lo = bf16(v - hi).
+__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
 }
 
+// hi + lo = bf16 pair * (w.x, w.y), each rounded to bf16: the two bf16 terms
+// of an f32 product.
+__device__ __forceinline__ void split_scaled(uint32_t pair, float2 w, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(&pair);
+  split_pair(__low2float(v2) * w.x, __high2float(v2) * w.y, hi, lo);
+}
+
 // One step of the intra-chunk term for a 16-row query tile: key blocks kb
 // and, with TWO, kb + 1 (16 keys each). The scores C.B^T in accumulator
 // fragments (four independent chains with TWO), the decay 2^(cl2_i - cl2_j)
-// = exp(cums_i - cums_j) selected for j <= i, the fragment rounded to bf16
-// as the A fragments of y += scores . x.
+// = exp(cums_i - cums_j) selected for j <= i, the fragment split into bf16
+// hi + lo as the A fragments of y += scores . x (two products).
 template <int KS, int NP, int LDB, int LDX, bool TWO>
 __device__ __forceinline__ void intra_step(float (&yacc)[NP][4], const uint32_t (&cf)[KS][4],
                                            const bf16* bs, const bf16* xs, const float2* cl2,
@@ -460,7 +470,7 @@ __device__ __forceinline__ void intra_step(float (&yacc)[NP][4], const uint32_t 
       mma_bf16(s[2 * k + 1], cf[kk], bk[2], bk[3]);
     }
   }
-  uint32_t pa[NK][4];
+  uint32_t pa[NK][4], pl[NK][4];  // the scores' bf16 hi and lo terms
 #pragma unroll
   for (int n = 0; n < 2 * NK; ++n) {
     const int j0 = kb * 16 + n * 8 + 2 * t4;
@@ -473,8 +483,8 @@ __device__ __forceinline__ void intra_step(float (&yacc)[NP][4], const uint32_t 
       const float hj = e % 2 ? cj.z : cj.x, lj = e % 2 ? cj.w : cj.y;
       v[e] = j <= i ? s[n][e] * ex2((c_i.x - hj) + (c_i.y - lj)) : 0.f;
     }
-    pa[n / 2][2 * (n % 2)] = pack_bf16(v[0], v[1]);
-    pa[n / 2][2 * (n % 2) + 1] = pack_bf16(v[2], v[3]);
+    split_pair(v[0], v[1], pa[n / 2][2 * (n % 2)], pl[n / 2][2 * (n % 2)]);
+    split_pair(v[2], v[3], pa[n / 2][2 * (n % 2) + 1], pl[n / 2][2 * (n % 2) + 1]);
   }
 #pragma unroll
   for (int n = 0; n < NP; n += 2) {
@@ -483,7 +493,9 @@ __device__ __forceinline__ void intra_step(float (&yacc)[NP][4], const uint32_t 
       uint32_t bv[4];  // x's rows (keys) (kb+k)*16.. x columns n*8.., (n+1)*8..: .trans
       ldmatrix_x4_trans(bv, xs + ((kb + k) * 16 + lane % 16) * LDX + n * 8 + (lane / 16) * 8);
       mma_bf16(yacc[n], pa[k], bv[0], bv[1]);
+      mma_bf16(yacc[n], pl[k], bv[0], bv[1]);
       mma_bf16(yacc[n + 1], pa[k], bv[2], bv[3]);
+      mma_bf16(yacc[n + 1], pl[k], bv[2], bv[3]);
     }
   }
 }
@@ -507,7 +519,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) ssd_mma_kernel(Args a) {
   bf16* xs = reinterpret_cast<bf16*>(smem + Sh::x_off);
   bf16* bs = reinterpret_cast<bf16*>(smem + Sh::b_off);
   float* st = reinterpret_cast<float*>(smem + Sh::st_off);  // [P][LDS]: S_c, then the entering state
-  bf16* sb = reinterpret_cast<bf16*>(smem + Sh::st_off);    // [P][LDB]: the entering state, bf16
+  // [P][LDB] each: the entering state's bf16 hi and lo terms
+  bf16* sb = reinterpret_cast<bf16*>(smem + Sh::st_off);
+  bf16* sl = sb + P * LDB;
   // cums * log2(e) as an f32 pair hi + lo (hi = f32(v), lo = f32(v - hi)): the
   // difference of two rows, (hi_i - hi_j) + (lo_i - lo_j), is within an ulp
   // of the f64 difference rounded to f32, in f32 arithmetic
@@ -693,7 +707,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) ssd_mma_kernel(Args a) {
     cluster.sync();  // every entering state is written; no shared memory is read remotely after
 
     if (active) {
-      // -- the entering state in bf16, over the f32 one: every value read first --
+      // -- the entering state as bf16 hi + lo, over the f32 one (every value read first) --
       float4 sv[CV];
 #pragma unroll
       for (int k = 0; k < CV; ++k) {
@@ -704,8 +718,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) ssd_mma_kernel(Args a) {
 #pragma unroll
       for (int k = 0; k < CV; ++k) {
         const int e4 = tid + k * MMA_THREADS, p = e4 / (N / 4), n = (e4 % (N / 4)) * 4;
-        *reinterpret_cast<uint2*>(sb + p * LDB + n) =
-            make_uint2(pack_bf16(sv[k].x, sv[k].y), pack_bf16(sv[k].z, sv[k].w));
+        uint2 hi, lo;
+        split_pair(sv[k].x, sv[k].y, hi.x, lo.x);
+        split_pair(sv[k].z, sv[k].w, hi.y, lo.y);
+        *reinterpret_cast<uint2*>(sb + p * LDB + n) = hi;
+        *reinterpret_cast<uint2*>(sl + p * LDB + n) = lo;
       }
       __syncthreads();
 
@@ -724,11 +741,16 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) ssd_mma_kernel(Args a) {
         for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
           for (int n = 0; n < NP; n += 2) {
-            uint32_t bsf[4];  // state rows (p) n*8.. and (n+1)*8.. x columns kk*16..
-            ldmatrix_x4(bsf, sb + (n * 8 + lane % 8 + (lane / 16) * 8) * LDB + kk * 16 +
-                                 ((lane / 8) % 2) * 8);
+            // state rows (p) n*8.. and (n+1)*8.. x columns kk*16.., hi and lo
+            const int off = (n * 8 + lane % 8 + (lane / 16) * 8) * LDB + kk * 16 +
+                            ((lane / 8) % 2) * 8;
+            uint32_t bsf[4], bsl[4];
+            ldmatrix_x4(bsf, sb + off);
+            ldmatrix_x4(bsl, sl + off);
             mma_bf16(yacc[n], cf[kk], bsf[0], bsf[1]);
+            mma_bf16(yacc[n], cf[kk], bsl[0], bsl[1]);
             mma_bf16(yacc[n + 1], cf[kk], bsf[2], bsf[3]);
+            mma_bf16(yacc[n + 1], cf[kk], bsl[2], bsl[3]);
           }
         }
         const float ea = ecum[ia], eb = ecum[ib];

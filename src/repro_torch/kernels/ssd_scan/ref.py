@@ -73,7 +73,7 @@ def ssd_chunked(x, dA, Bm, Cm, chunk: int, initial_state=None):
 
 
 def ssd_cluster_ref(x, dA, Bm, Cm, chunk: int, initial_state=None, *, cluster: int = 8,
-                    bf16_products: bool = True, split_state: bool = True):
+                    bf16_products: bool = True, split: bool = True):
     """The arithmetic of ``csrc/ssd_scan.cu``'s bf16 kernel in plain PyTorch.
     Same arguments and results as ``ssd_chunked``. Per chunk, apart: the
     running sum of dA in f64, each decay exp(f32(difference)); the chunk's
@@ -83,10 +83,10 @@ def ssd_cluster_ref(x, dA, Bm, Cm, chunk: int, initial_state=None, *, cluster: i
     through them, h <- h * exp(cums_last) + S_c, the value before each step
     being the state entering that chunk. Then y = (C.B^T o L).x +
     (C.state^T) o exp(cums). With ``bf16_products`` every tensor-core
-    operand is rounded to bf16 as the kernel rounds it: the masked, decayed
-    scores, the entering state in C.state^T, and x o decay in S_c; that last
-    one as two bf16 terms, hi = bf16(v) and lo = bf16(v - hi), with
-    ``split_state``, else as one. Products accumulate in f32."""
+    operand that is not an input is rounded to bf16 as the kernel rounds it:
+    the entering state in C.state^T, the masked, decayed scores, and x o
+    decay in S_c; with ``split`` each as two bf16 terms, hi = bf16(v) and
+    lo = bf16(v - hi), else as one. Products accumulate in f32."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     if Bm.dim() == 3:
@@ -103,12 +103,13 @@ def ssd_cluster_ref(x, dA, Bm, Cm, chunk: int, initial_state=None, *, cluster: i
     def bf16(t):
         return t.to(torch.bfloat16).to(f32) if bf16_products else t
 
+    def bf16_pair(t):  # hi + lo, each bf16, summed exactly in f32
+        hi = bf16(t)
+        return hi + bf16(t - hi) if split else hi
+
     # phase A, every chunk apart: its own contribution to the state
     v = xc * torch.exp((last[:, :, None] - cums).to(f32))[..., None]
-    terms = [bf16(v)]
-    if bf16_products and split_state:
-        terms.append(bf16(v - terms[0]))
-    states = sum(torch.einsum("bcshp,bcshn->bchpn", t, Bc) for t in terms)  # (B,nc,H,P,N)
+    states = torch.einsum("bcshp,bcshn->bchpn", bf16_pair(v), Bc)  # (B,nc,H,P,N)
     decay = torch.exp(last.to(f32))                                   # (B,nc,H)
     # the scan over the ranks of each round
     h = (torch.zeros(Bsz, H, P, N, dtype=f32) if initial_state is None
@@ -119,13 +120,13 @@ def ssd_cluster_ref(x, dA, Bm, Cm, chunk: int, initial_state=None, *, cluster: i
             c = rnd * cluster + rank
             entering.append(h)
             h = h * decay[:, c, :, None, None] + states[:, c]
-    prev = bf16(torch.stack(entering, dim=1))                         # (B,nc,H,P,N)
+    prev = bf16_pair(torch.stack(entering, dim=1))                    # (B,nc,H,P,N)
     # phase B: y = (C.B^T o L).x + (C.state^T) o exp(cums)
     y_off = torch.einsum("bclhn,bchpn->bclhp", Cc, prev) * torch.exp(cums.to(f32))[..., None]
     diff = (cums[:, :, :, None] - cums[:, :, None, :]).to(f32)       # (B,nc,i,j,H)
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[None, None, :, :, None]
     L = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
-    scores = bf16(torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L)
+    scores = bf16_pair(torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L)
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
     y = (y_diag + y_off).reshape(Bsz, nc * chunk, H, P)[:, :S]
     return y.to(x.dtype), h

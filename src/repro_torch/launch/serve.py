@@ -49,7 +49,10 @@ def serve_batch_loop(cfg, params, prompts, *, new_tokens: int) -> torch.Tensor:
     """Token-at-a-time reference: the prompt is pushed through ``serve_step``
     one position at a time. The equivalence oracle for ``serve_batch``: on
     the card it runs the decode path alone, where ``serve_batch`` prefills
-    through the flash_attention (GQA) or ssd_scan (Mamba2) kernel."""
+    through the flash_attention (GQA) or ssd_scan (Mamba2) kernel. (An MoE
+    model agrees only while batch x prompt ≤ 64 tokens: above that the bulk
+    prefill takes the Switch capacity and drops overflow, as the
+    reference's does, where each decode step keeps every choice.)"""
     model = build_model(cfg)
     prompts = _prompts_on(params, prompts)
     B, S = prompts.shape

@@ -1,5 +1,5 @@
-"""GQA/MQA attention (+qk_norm, LoRA on q, sliding window, softcap) — the
-port of the GQA part of ``repro.models.attention``.
+"""Attention variants: GQA/MQA (+qk_norm, LoRA on q, sliding window,
+softcap) and MLA — the port of ``repro.models.attention``.
 
 Two entry points, as in the reference:
   * full-sequence causal (training / prefill): ``attn_full`` / ``attn_prefill``,
@@ -21,14 +21,22 @@ reference's ``_sdpa``.
 
 Unlike the reference's pure functions, the cache is updated *in place* (and
 returned): a cache is a few GB at serving's batch sizes, and a functional
-update would copy it every token. MLA is not ported yet (ROADMAP Queue 1,
-item 17).
+update would copy it every token.
+
+MLA (multi-head latent attention, MiniCPM3/DeepSeek-V2) caches the compressed
+latent (kv_lora_rank + rope_dim per token) instead of per-head K/V, with a
+naive decode (reconstruct K/V each step) and an *absorbed* one (fold W_uk into
+the query and W_uv into the output). The reference runs MLA through its plain
+``_sdpa``/``chunked_sdpa``, never a TPU kernel (its qk width, nope + rope = 96,
+is not a kernel head size), and so does the port, on every device: MLA never
+reaches the ``flash_attention`` or ``decode_attention`` op.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -271,3 +279,175 @@ def attn_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     out = _full_causal_out(cfg, qg, k, v, window=window, use_flash=True)
     out = dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim_))
     return out, fill_ring(cache, {"k": k, "v": v}, S)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ModelConfig, lead: tuple = ()) -> dict:
+    dt = cfg.torch_dtype
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        # query path: down-project → norm → up-project to per-head (nope+rope)
+        "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora_rank, dt, lead=lead),
+        "q_a_norm": rmsnorm_init(gen, cfg.q_lora_rank, dt, lead=lead),
+        "wq_b": dense_init(gen, cfg.q_lora_rank, cfg.n_heads * qk_dim, dt, lead=lead),
+        # kv path: shared compressed latent + shared rope key
+        "wkv_a": dense_init(gen, cfg.d_model, cfg.kv_lora_rank, dt, lead=lead),
+        "kv_a_norm": rmsnorm_init(gen, cfg.kv_lora_rank, dt, lead=lead),
+        "wk_rope": dense_init(gen, cfg.d_model, cfg.qk_rope_dim, dt, lead=lead),
+        "wk_b": dense_init(gen, cfg.kv_lora_rank, cfg.n_heads * cfg.qk_nope_dim, dt, lead=lead),
+        "wv_b": dense_init(gen, cfg.kv_lora_rank, cfg.n_heads * cfg.v_head_dim, dt, lead=lead),
+        "wo": dense_init(gen, cfg.n_heads * cfg.v_head_dim, cfg.d_model, dt, lead=lead),
+    }
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions):
+    B, S, _ = x.shape
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    q_lat = rmsnorm_apply(p["q_a_norm"], dense_apply(p["wq_a"], x), cfg.norm_eps)
+    q = dense_apply(p["wq_b"], q_lat).reshape(B, S, cfg.n_heads, qk_dim)
+    q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, cfg: ModelConfig, x, positions):
+    c_kv = rmsnorm_apply(p["kv_a_norm"], dense_apply(p["wkv_a"], x), cfg.norm_eps)
+    k_rope = apply_rope(dense_apply(p["wk_rope"], x)[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_attend(cfg: ModelConfig, qg, k, v, window: int) -> torch.Tensor:
+    """Plain causal attention for MLA's unified heads (never a kernel)."""
+    S = qg.shape[1]
+    if S > CHUNKED_THRESHOLD:
+        return chunked_sdpa(qg, k, v, causal=True, window=window or 0,
+                            qblock=cfg.attn_qblock, probs_bf16=cfg.attn_probs_bf16)
+    return _sdpa(qg, k, v, causal_mask(S, window, device=qg.device), 0.0)
+
+
+def mla_full_absorbed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                      window: int | None = None) -> torch.Tensor:
+    """Absorbed-matmul MLA for the full-sequence path: W_uk folds into the
+    query (per-head latent queries) and W_uv into the output, so scores and
+    context are computed against the (S, kv_rank) latent, shared by every
+    head (MQA, kv = 1)."""
+    B, S, _ = x.shape
+    window = cfg.sliding_window if window is None else window
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)            # (B,S,H,dn), (B,S,H,dr)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)         # (B,S,R), (B,S,dr)
+    H, R, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    wk_b = p["wk_b"]["w"].reshape(R, H, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_b.to(q_nope.dtype))
+    q_full = torch.cat([q_lat, q_rope], dim=-1)              # (B,S,H,R+dr)
+    k_full = torch.cat([c_kv, k_rope], dim=-1)               # (B,S,R+dr)
+    # the score scale must be the naive path's 1/sqrt(nope + rope), but the
+    # attention scales by 1/sqrt(R + dr): pre-scale q to compensate
+    fix = math.sqrt(R + dr) / math.sqrt(cfg.qk_nope_dim + dr)
+    qg = (q_full * fix).reshape(B, S, 1, H, R + dr)
+    # context in latent space: pad the latent "values" to key width
+    v_lat = F.pad(c_kv, (0, dr))[:, :, None, :]
+    ctx = _mla_attend(cfg, qg, k_full[:, :, None, :], v_lat, window)
+    ctx_lat = ctx.reshape(B, S, H, R + dr)[..., :R]
+    wv_b = p["wv_b"]["w"].reshape(R, H, cfg.v_head_dim)
+    out = torch.einsum("bshr,rhd->bshd", ctx_lat, wv_b.to(ctx_lat.dtype))
+    return dense_apply(p["wo"], out.reshape(B, S, H * cfg.v_head_dim))
+
+
+def mla_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+             window: int | None = None) -> torch.Tensor:
+    if cfg.mla_absorb:
+        return mla_full_absorbed(p, cfg, x, window=window)
+    B, S, _ = x.shape
+    window = cfg.sliding_window if window is None else window
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    H, dr = cfg.n_heads, cfg.qk_rope_dim
+    k_nope = dense_apply(p["wk_b"], c_kv).reshape(B, S, H, cfg.qk_nope_dim)
+    v = dense_apply(p["wv_b"], c_kv).reshape(B, S, H, cfg.v_head_dim)
+    # one head_dim of nope + rope; k_rope is shared across heads (MQA-style)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)                      # (B,S,H,dn+dr)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    # pad v up to the qk head_dim so the shapes line up, slice after
+    qk_dim = cfg.qk_nope_dim + dr
+    vp = F.pad(v, (0, qk_dim - cfg.v_head_dim))
+    out = _mla_attend(cfg, q_full.reshape(B, S, H, 1, qk_dim), k_full, vp, window)
+    out = out.reshape(B, S, H, qk_dim)[..., : cfg.v_head_dim]
+    return dense_apply(p["wo"], out.reshape(B, S, H * cfg.v_head_dim))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *,
+                   device: "str | torch.device" = "cpu", lead: tuple = ()) -> dict:
+    """Ring-buffer latent cache: the compressed c_kv and the shared rope key
+    per position."""
+    dt = dtype or cfg.torch_dtype
+    return {
+        "c_kv": torch.zeros((*lead, batch, capacity, cfg.kv_lora_rank), dtype=dt, device=device),
+        "k_rope": torch.zeros((*lead, batch, capacity, cfg.qk_rope_dim), dtype=dt, device=device),
+        "slot_pos": torch.full((*lead, capacity), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int, *,
+               window: int | None = None, absorb: bool = False) -> tuple[torch.Tensor, dict]:
+    """One-token MLA decode; writes the token's latent into slot pos % C of
+    ``cache`` in place.
+
+    naive (absorb=False): reconstruct per-head K/V from all cached latents.
+    absorbed (absorb=True): score directly in the latent space by folding
+    W_uk into the query and W_uv into the output — no K/V materialization.
+    """
+    B = x.shape[0]
+    pos = int(pos)
+    window = cfg.sliding_window if window is None else window
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv_new, k_rope_new = _mla_latent(p, cfg, x, positions)
+    slot_pos = cache["slot_pos"]
+    slot = pos % slot_pos.shape[0]
+    cache["c_kv"][:, slot] = c_kv_new[:, 0]
+    cache["k_rope"][:, slot] = k_rope_new[:, 0]
+    slot_pos[slot] = pos
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window and window > 0:
+        valid &= slot_pos > pos - window
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    ckv = cache["c_kv"].float()        # (B,C,R)
+    krope = cache["k_rope"].float()    # (B,C,r)
+    H, R = cfg.n_heads, cfg.kv_lora_rank
+    if absorb:
+        wk_b = p["wk_b"]["w"].float().reshape(R, H, cfg.qk_nope_dim)
+        # fold W_uk into the query: per-head latent query (B,1,H,R)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_b)
+        scores = torch.einsum("bshr,bcr->bhsc", q_lat, ckv)
+        scores = scores + torch.einsum("bshd,bcd->bhsc", q_rope.float(), krope)
+        scores = torch.where(valid[None, None, None], scores * scale, NEG_INF)
+        ctx_lat = torch.einsum("bhsc,bcr->bshr", torch.softmax(scores, dim=-1), ckv)
+        wv_b = p["wv_b"]["w"].float().reshape(R, H, cfg.v_head_dim)
+        out = torch.einsum("bshr,rhd->bshd", ctx_lat, wv_b)
+    else:
+        C = ckv.shape[1]
+        k_nope = dense_apply(p["wk_b"], cache["c_kv"]).reshape(B, C, H, cfg.qk_nope_dim)
+        v = dense_apply(p["wv_b"], cache["c_kv"]).reshape(B, C, H, cfg.v_head_dim)
+        scores = torch.einsum("bshd,bchd->bhsc", q_nope.float(), k_nope.float())
+        scores = scores + torch.einsum("bshd,bcd->bhsc", q_rope.float(), krope)
+        scores = torch.where(valid[None, None, None], scores * scale, NEG_INF)
+        out = torch.einsum("bhsc,bchd->bshd", torch.softmax(scores, dim=-1), v.float())
+    out = out.to(x.dtype).reshape(B, 1, H * cfg.v_head_dim)
+    return dense_apply(p["wo"], out), cache
+
+
+def mla_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
+                window: int | None = None) -> tuple[torch.Tensor, dict]:
+    """``mla_full`` that also fills the latent decode cache (fresh, positions
+    from 0). The latent projection is recomputed for the ring fill, as in the
+    reference."""
+    out = mla_full(p, cfg, x, window=window)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    return out, fill_ring(cache, {"c_kv": c_kv, "k_rope": k_rope}, x.shape[1])

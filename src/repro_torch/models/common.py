@@ -163,6 +163,14 @@ def _normal(gen, shape, dtype, std: float) -> torch.Tensor:
     return x.mul_(std).to(dtype)
 
 
+def _uniform(gen, shape, low: float, high: float) -> torch.Tensor:
+    """f32 draws from U[low, high)."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    x = torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return x.mul_(high - low).add_(low)
+
+
 def _full(gen, shape, dtype, value: float) -> torch.Tensor:
     device = "meta" if gen is None else gen.device
     return torch.full(shape, value, dtype=dtype, device=device)

@@ -1,6 +1,10 @@
-"""Decoder-only LM assembly — the port of ``repro.models.transformer`` for
-``attn`` blocks (pre-norm GQA attention + pre-norm MLP) and ``ssm`` blocks
-(pre-norm Mamba2 SSD block, no MLP).
+"""Decoder-only LM assembly — the port of ``repro.models.transformer``.
+
+Block kinds, as in the reference:
+  attn      — pre-norm attention (GQA or MLA) + pre-norm MLP
+  moe_attn  — pre-norm GQA attention + pre-norm MoE (aux loss accumulated)
+  ssm       — pre-norm Mamba2 SSD block (no separate MLP)
+  rglru     — pre-norm RG-LRU recurrent block + pre-norm MLP
 
 The parameter tree is the reference's, leaf for leaf: ``embed/table``,
 ``blocks/u<u>_<kind>/...`` with a leading group axis over the stacked layers,
@@ -10,18 +14,20 @@ node's weights deploy in the port. Where the reference scans over the group
 axis, the port loops in Python over the stacked leaves' slices (views).
 
 ``loss`` is the reference's training loss (mean token CE over the valid
-vocab, plus the router aux term, which is 0 here). The full forward
-(``apply``, ``loss``) is plain tensor code that autograd differentiates, as
-the port's CUDA kernels are forward-only: attention takes the flash kernel
-only with ``use_flash=True`` (the reference's switch, off by default), and
-``ssm`` blocks always run the plain ``ssd_chunked``, as in the reference.
-Serving's ``prefill`` and ``decode_step`` run the kernels. ``remat=True``
-recomputes each layer group in the backward (``torch.utils.checkpoint``,
-where the reference has ``jax.checkpoint``).
+vocab, plus ``router_aux_weight`` times the MoE blocks' summed load-balance
+loss). The full forward (``apply``, ``loss``) is plain tensor code that
+autograd differentiates, as the port's CUDA kernels are forward-only: GQA
+attention takes the flash kernel only with ``use_flash=True`` (the
+reference's switch, off by default), ``ssm`` blocks always run the plain
+``ssd_chunked``, as in the reference, and MLA, RG-LRU and MoE have no kernel
+in either package. Serving's ``prefill`` and ``decode_step`` run the kernels
+of GQA attention (``attn`` and ``moe_attn`` blocks) and of ``ssm`` blocks.
+``remat=True`` recomputes each layer group in the backward
+(``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``).
 
-Block kinds other than ``attn`` and ``ssm`` (``moe_attn``, ``rglru``), MLA,
-encoder-decoders and VLM prefixes are not ported yet (ROADMAP Queue 1,
-item 17): building such a model raises ``NotImplementedError``.
+Encoder-decoders and VLM / audio prefixes are not ported yet (ROADMAP Queue
+1, item 17's remainder): building an encoder-decoder raises
+``NotImplementedError``, and so does a forward given prefix embeddings.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from repro_torch.core.tree import tree_flatten_with_path, tree_unflatten
 from repro_torch.kernels import resolve_device
 
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .common import (
     ModelConfig,
@@ -46,51 +54,75 @@ from .common import (
     unembed_apply,
 )
 
-PORTED_KINDS = ("attn", "ssm")
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
-    what = None
+    """Raise ``NotImplementedError`` for what the port lacks: encoder-decoders."""
     if cfg.is_encdec:
-        what = "encoder-decoder models"
-    elif cfg.attention == "mla":
-        what = "MLA attention"
-    else:
-        missing = sorted(set(cfg.pattern) - set(PORTED_KINDS))
-        if missing:
-            what = f"block kinds {missing}"
-    if what:
         raise NotImplementedError(
-            f"{cfg.name}: {what} are not ported to PyTorch yet (ROADMAP Queue 1, item 17); "
-            f"the port builds {list(PORTED_KINDS)} blocks (attention: GQA)")
+            f"{cfg.name}: encoder-decoder models are not ported to PyTorch yet (ROADMAP "
+            "Queue 1, item 17's remainder: enc-dec and prefixes); the port builds decoder-only "
+            "models of every block kind (attn, moe_attn, ssm, rglru; GQA and MLA)")
 
 
 def _init_block(gen, cfg: ModelConfig, kind: str, lead: tuple = ()) -> dict:
     dt = cfg.torch_dtype
     if kind == "attn":
+        attn_init = attn_mod.init_mla if cfg.attention == "mla" else attn_mod.init_attention
+        return {
+            "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "attn": attn_init(gen, cfg, lead=lead),
+            "norm2": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "mlp": mlp_init(gen, cfg, lead=lead),
+        }
+    if kind == "moe_attn":
         return {
             "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
             "attn": attn_mod.init_attention(gen, cfg, lead=lead),
             "norm2": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
-            "mlp": mlp_init(gen, cfg, lead=lead),
+            "moe": moe_mod.init_moe(gen, cfg, lead=lead),
         }
     if kind == "ssm":
         return {
             "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
             "ssm": ssm_mod.init_mamba2(gen, cfg, lead=lead),
         }
+    if kind == "rglru":
+        return {
+            "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "rglru": rglru_mod.init_rglru(gen, cfg, lead=lead),
+            "norm2": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "mlp": mlp_init(gen, cfg, lead=lead),
+        }
     raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _is_mla(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.attention == "mla" and kind == "attn"
+
+
+def _ffn(p, cfg: ModelConfig, kind: str, x):
+    """The second half of an attention or RG-LRU block: pre-norm MLP, or MoE
+    for ``moe_attn`` → (x, aux)."""
+    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    if kind == "moe_attn":
+        out, aux = moe_mod.moe_apply(p["moe"], cfg, h)
+        return x + out, aux
+    return x + mlp_apply(p["mlp"], h, cfg.activation), None
 
 
 def _apply_block_full(p, cfg: ModelConfig, kind: str, x, *, window_override=None,
                       use_flash=False):
+    """Full-sequence forward → (x, aux); aux is None for blocks without MoE."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if kind == "ssm":
-        return x + ssm_mod.mamba2_full(p["ssm"], cfg, h)
-    x = x + attn_mod.attn_full(p["attn"], cfg, h, window=window_override, use_flash=use_flash)
-    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.activation)
+        return x + ssm_mod.mamba2_full(p["ssm"], cfg, h), None
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_full(p["rglru"], cfg, h)
+    elif _is_mla(cfg, kind):
+        x = x + attn_mod.mla_full(p["attn"], cfg, h, window=window_override)
+    else:
+        x = x + attn_mod.attn_full(p["attn"], cfg, h, window=window_override,
+                                   use_flash=use_flash)
+    return _ffn(p, cfg, kind, x)
 
 
 def _apply_block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos, *, window_override=None):
@@ -98,10 +130,14 @@ def _apply_block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos, *, window
     if kind == "ssm":
         out, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
         return x + out, cache
-    a, cache = attn_mod.attn_decode(p["attn"], cfg, h, cache, pos, window=window_override)
-    x = x + a
-    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.activation), cache
+    if kind == "rglru":
+        a, cache = rglru_mod.rglru_decode(p["rglru"], cfg, h, cache)
+    elif _is_mla(cfg, kind):
+        a, cache = attn_mod.mla_decode(p["attn"], cfg, h, cache, pos, window=window_override,
+                                       absorb=cfg.mla_absorb)
+    else:
+        a, cache = attn_mod.attn_decode(p["attn"], cfg, h, cache, pos, window=window_override)
+    return _ffn(p, cfg, kind, x + a)[0], cache
 
 
 def _apply_block_prefill(p, cfg: ModelConfig, kind: str, x, cache, *, window_override=None):
@@ -109,20 +145,26 @@ def _apply_block_prefill(p, cfg: ModelConfig, kind: str, x, cache, *, window_ove
     if kind == "ssm":
         out, cache = ssm_mod.mamba2_prefill(p["ssm"], cfg, h, cache)
         return x + out, cache
-    a, cache = attn_mod.attn_prefill(p["attn"], cfg, h, cache, window=window_override)
-    x = x + a
-    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.activation), cache
+    if kind == "rglru":
+        a, cache = rglru_mod.rglru_prefill(p["rglru"], cfg, h, cache)
+    elif _is_mla(cfg, kind):
+        a, cache = attn_mod.mla_prefill(p["attn"], cfg, h, cache, window=window_override)
+    else:
+        a, cache = attn_mod.attn_prefill(p["attn"], cfg, h, cache, window=window_override)
+    return _ffn(p, cfg, kind, x + a)[0], cache
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
                       device, lead: tuple = ()) -> dict:
-    """An ``attn`` block's ring KV cache, or an ``ssm`` block's conv window
-    (model dtype) and f32 state."""
+    """An attention block's ring cache (GQA k/v, or MLA's latent c_kv and rope
+    key), an ``ssm`` block's conv window and f32 state, or an ``rglru``
+    block's conv window and f32 h."""
     if kind == "ssm":
         return ssm_mod.init_ssm_cache(cfg, batch, device=device, lead=lead)
-    return attn_mod.init_attn_cache(cfg, batch, _cache_capacity(cfg, capacity), device=device,
-                                    lead=lead)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_cache(cfg, batch, device=device, lead=lead)
+    init = attn_mod.init_mla_cache if _is_mla(cfg, kind) else attn_mod.init_attn_cache
+    return init(cfg, batch, _cache_capacity(cfg, capacity), device=device, lead=lead)
 
 
 def _cache_capacity(cfg: ModelConfig, capacity: int) -> int:
@@ -195,7 +237,8 @@ class DecoderLM:
     def _embed(self, params, tokens, extra_embeds=None):
         if extra_embeds is not None:
             raise NotImplementedError(
-                "VLM / audio prefixes are not ported yet (ROADMAP Queue 1, item 17)")
+                f"{self.cfg.name}: VLM / audio prefix embeddings are not ported yet (ROADMAP "
+                "Queue 1, item 17's remainder: enc-dec and prefixes)")
         cfg = self.cfg
         # the reference scales by sqrt(d_model) rounded to the model's dtype
         scale = torch.tensor(cfg.d_model**0.5, dtype=cfg.torch_dtype).item()
@@ -206,11 +249,13 @@ class DecoderLM:
         return unembed_apply(params.get("unembed", params["embed"]), x)
 
     # -- full forward ----------------------------------------------------------
-    def _group_full(self, group: dict, x, window_override, use_flash):
+    def _group_full(self, group: dict, x, aux, window_override, use_flash):
         for u, kind in enumerate(self.pattern):
-            x = _apply_block_full(group[f"u{u}_{kind}"], self.cfg, kind, x,
-                                  window_override=window_override, use_flash=use_flash)
-        return x
+            x, a = _apply_block_full(group[f"u{u}_{kind}"], self.cfg, kind, x,
+                                     window_override=window_override, use_flash=use_flash)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def apply(self, params, tokens, extra_embeds=None, *, window_override=None,
               remat: bool = False, use_flash: bool = False):
@@ -220,21 +265,25 @@ class DecoderLM:
                 f"remat_policy={self.cfg.remat_policy!r} is not ported; the port recomputes "
                 "whole layer groups ('full')")
         x = self._embed(params, tokens, extra_embeds)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group in self._per_group(params["blocks"]):
             if remat and torch.is_grad_enabled():
-                x = checkpoint(self._group_full, group, x, window_override, use_flash,
-                               use_reentrant=False)
+                x, aux = checkpoint(self._group_full, group, x, aux, window_override, use_flash,
+                                    use_reentrant=False)
             else:
-                x = self._group_full(group, x, window_override, use_flash)
+                x, aux = self._group_full(group, x, aux, window_override, use_flash)
         for i, kind in enumerate(self.tail):
-            x = _apply_block_full(params["tail"][f"t{i}_{kind}"], self.cfg, kind, x,
-                                  window_override=window_override, use_flash=use_flash)
-        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _apply_block_full(params["tail"][f"t{i}_{kind}"], self.cfg, kind, x,
+                                     window_override=window_override, use_flash=use_flash)
+            if a is not None:
+                aux = aux + a
+        return self._logits(params, x), aux
 
     # -- loss -------------------------------------------------------------------
     def loss(self, params, batch, rng=None, *, remat: bool = False, use_flash: bool = False):
         """→ (loss, {"ce", "aux", "accuracy"}): mean token CE over the valid
-        vocab plus the router aux term, as the reference computes it."""
+        vocab plus ``router_aux_weight`` times the MoE blocks' summed
+        load-balance loss, as the reference computes it."""
         cfg = self.cfg
         labels = batch["labels"]
         logits, aux = self.apply(params, batch["tokens"], batch.get("embeds"), remat=remat,

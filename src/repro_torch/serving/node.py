@@ -163,8 +163,9 @@ class ServingNode:
             cfg = cfg.reduced()
         if cfg.is_encdec:
             raise ValueError(
-                "ServingNode covers decoder-only archs (the federated zoo); "
-                "enc-dec models are not ported yet (ROADMAP Queue 1, item 17)")
+                "ServingNode covers decoder-only archs (the federated zoo), as the "
+                "reference's does; enc-dec models are not ported yet (ROADMAP Queue 1, "
+                "item 17's remainder)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)

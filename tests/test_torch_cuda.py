@@ -543,3 +543,43 @@ def test_training_forward_on_the_card_reaches_no_forward_only_kernel(cuda, arch,
                       model.init_cache(2, S, device=cuda))
     torch.cuda.synchronize()
     assert launches() == before + cfg.n_layers
+
+
+@pytest.mark.parametrize("arch,attn_layers", [("recurrentgemma-9b", 2), ("minicpm3-4b", 0),
+                                              ("llama4-scout-17b-a16e", 2)])
+def test_zoo_serving_runs_the_attention_kernels_per_attention_layer(cuda, arch, attn_layers):
+    """At reduced(), f32: the bulk prefill launches flash_attention once per
+    GQA attention layer and decode_attention once per such layer per token
+    (none for MLA), and gives the decode-only loop's tokens. recurrentgemma's
+    prompt of 80 passes its reduced window of 64; the MoE prompt stays at 64
+    tokens, under which no choice is dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve_batch, serve_batch_loop
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg).init(0, device=cuda)
+    S = 32 if cfg.num_experts else 80
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S), dtype=np.int32)
+    fk.reset_launches()
+    dk.reset_launches()
+    fast = serve_batch(cfg, params, prompts, new_tokens=5)
+    assert fk.LAUNCHES["flash_attention"] == attn_layers
+    assert dk.LAUNCHES["decode_attention"] == 4 * attn_layers
+    slow = serve_batch_loop(cfg, params, prompts, new_tokens=5)
+    assert torch.equal(fast, slow)
+
+
+def test_grok_softcap_still_refuses_the_card(cuda):
+    """grok-1's attn_logit_softcap has no CUDA kernel: serving it on the card
+    raises, with no fallback to plain attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    cfg = get_config("grok-1-314b").reduced()
+    params = build_model(cfg).init(0, device=cuda)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        serve_batch(cfg, params, np.zeros((1, 4), np.int32), new_tokens=2)
