@@ -38,7 +38,13 @@ main paths end to end:
 * the rest of the decoder zoo through the serving path, at full width in
   bf16 with depth cut: llama4-scout (MoE), recurrentgemma-9b (RG-LRU and
   windowed attention) and minicpm3-4b (MLA, plain attention), each also held
-  bulk-vs-loop and card-vs-CPU.
+  bulk-vs-loop and card-vs-CPU;
+* the encoder-decoder and the VLM prefix through ``serve_batch`` at their
+  published configs (bf16): seamless-m4t-medium on 1,024 stub audio frames
+  an utterance, internvl2-1b on 256 stub patch embeddings + 256 text
+  tokens (``flash_attention`` in the decoder's prefill, ``decode_attention``
+  a token), each held against the plain f32 model, in f32 at two layers
+  (bulk == loop; prefill == ``apply``), and card-vs-CPU.
 
 Prints one JSON line per phase, then the card's name and power limit, the
 kernel summary and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -121,10 +127,24 @@ SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW = 4, 1000, 16
 # run; minicpm3-4b (MLA) to 4 layers.
 ZOO = [("llama4-scout-17b-a16e", 1, 512), ("recurrentgemma-9b", 3, 3072), ("minicpm3-4b", 4, 512)]
 ZOO_B, ZOO_NEW = 4, 32
+# The enc-dec and the VLM prefix, served through `serve_batch` at full width
+# and depth in bf16, weights and stub inputs from a seed: seamless-m4t-medium
+# with MODAL_B utterances of its 1,024 stub frames (`frontend_tokens`) and
+# ENCDEC_S-token prompts; internvl2-1b with MODAL_B requests of its 256 stub
+# patch embeddings and PREFIX_S text tokens; MODAL_NEW greedy tokens each,
+# MODAL_BATCHES batches. Their f32 checks at full width cut the depth to
+# MODAL_CHECK_LAYERS (decoder; and encoder, for the enc-dec).
+ENCDEC_ARCH, PREFIX_ARCH = "seamless-m4t-medium", "internvl2-1b"
+MODAL_B, ENCDEC_S, PREFIX_S, MODAL_NEW, MODAL_BATCHES = ZOO_B, 64, 256, 32, 3
+MODAL_CHECK_LAYERS = 2
 # The zoo's GQA attention layers, where both kernels are also timed (arch, S,
-# KV, G, hd, window, ring C): llama4-scout's and recurrentgemma-9b's.
+# KV, G, hd, window, ring C): llama4-scout's, recurrentgemma-9b's, the
+# enc-dec's decoder (prompt; ring of prompt + new tokens) and the VLM's
+# (256 patches + text).
 ZOO_ATTENTION = [("llama4-scout-17b-a16e", 512, 8, 5, 128, 0, 512 + ZOO_NEW),
-                 ("recurrentgemma-9b", 3072, 1, 16, 256, 2048, 2048)]
+                 ("recurrentgemma-9b", 3072, 1, 16, 256, 2048, 2048),
+                 (ENCDEC_ARCH, ENCDEC_S, 16, 1, 64, 0, ENCDEC_S + MODAL_NEW),
+                 (PREFIX_ARCH, 256 + PREFIX_S, 2, 7, 64, 0, 256 + PREFIX_S + MODAL_NEW)]
 # Bulk prefill vs the token-at-a-time loop on the card, f32 at full width and
 # one pattern group: ZOO_LOOP_B prompts of each model's ZOO_LOOP_S tokens. The
 # MoE prompt keeps B x S at 64 tokens: above that the bulk prefill takes the
@@ -167,7 +187,9 @@ FLASH_CHECK = [  # B, S, KV, G, hd, window
     (1, 64, 1, 32, 256, 16),    # the widest group at hd 256, windowed
     (1, 1, 2, 4, 64, 0),        # S = 1
     (ZOO_B, 512, 8, 5, 128, 0),     # llama4-scout's serving prefill
-    (ZOO_B, 3072, 1, 16, 256, 2048)]  # recurrentgemma-9b's: KV 1, G 16, windowed
+    (ZOO_B, 3072, 1, 16, 256, 2048),  # recurrentgemma-9b's: KV 1, G 16, windowed
+    (MODAL_B, ENCDEC_S, 16, 1, 64, 0),     # seamless-m4t-medium's decoder: KV 16, G 1
+    (MODAL_B, 256 + PREFIX_S, 2, 7, 64, 0)]  # internvl2-1b's prefix + text: G 7
 DECODE_CHECK = [  # B, KV, G, hd, C
     (2, 2, 4, 64, 1024), (1, 8, 1, 128, 512), (3, 1, 6, 64, 2048), (1, 2, 2, 256, 256),
     (SERVE_B, 8, 4, 64, SERVE_S + SERVE_NEW), (SERVE_B, 8, 4, 64, 32768), (2, 8, 4, 64, 1000),
@@ -175,7 +197,9 @@ DECODE_CHECK = [  # B, KV, G, hd, C
     (2, 2, 4, 32, 100),
     (1, 1, 16, 256, 576),       # the largest block: G 16 at hd 256 (recurrentgemma-9b's group)
     (ZOO_B, 8, 5, 128, 512 + ZOO_NEW),  # llama4-scout's serving decode
-    (ZOO_B, 1, 16, 256, 2048)]  # recurrentgemma-9b's: its ring of 2,048
+    (ZOO_B, 1, 16, 256, 2048),  # recurrentgemma-9b's: its ring of 2,048
+    (MODAL_B, 16, 1, 64, ENCDEC_S + MODAL_NEW),            # seamless-m4t-medium's
+    (MODAL_B, 2, 7, 64, 256 + PREFIX_S + MODAL_NEW)]       # internvl2-1b's
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference's own
 # bf16's atol is also scaled by max|want| where that is below 1: at C = 32,768
 # the outputs are ~0.01, under a plain 2e-2, which zeros would meet.
@@ -575,6 +599,20 @@ def attn_build_report(lib_paths: dict) -> dict:
         dynamic_smem_bytes_largest=dk.smem_bytes(256, dk.MAX_G, torch.bfloat16, dk.MAX_SPLIT),
         clusters_resident_serving=dk.cluster_capacity(64, 4, torch.bfloat16, n_split),
         clusters_needed_serving=SERVE_B * 8)
+    # the instance each served zoo shape runs (bf16): flash is one instance
+    # per hd; decode rounds G up to the group block GB of its instance (2, 4,
+    # 8 or 16: csrc/decode_attention.cu's dispatch)
+    served = []
+    for arch, S, KV, G, hd, window, C in ZOO_ATTENTION:
+        GB = next(gb for gb in (2, 4, 8, dk.MAX_G) if G <= gb)
+        for kind, name in (("flash_attention", f"flash_mma_kernel<{hd}>"),
+                           ("decode_attention", f"decode_split_kernel<bf16,{hd},{GB}>")):
+            instances = report[kind]["instances"]
+            served.append({"model": arch, "kernel": kind, "KV": KV, "G": G, "hd": hd,
+                           "instance": name, **({"GB": GB} if kind == "decode_attention" else
+                                                {"q_positions_per_tile": 64 // G}),
+                           **instances.get(name, {"not_found_in": sorted(instances)})})
+    report["served_instances"] = served
     return report
 
 
@@ -1802,7 +1840,6 @@ def zoo_checks(dev, arch: str, kernels: dict) -> dict:
     CPU at ``reduced()`` in f32, from the same weights: equal greedy tokens,
     and the prefill's logits within ZOO_CPU_TOL of their largest magnitude."""
     from repro_torch.configs import get_config
-    from repro_torch.core.tree import tree_map
     from repro_torch.launch.serve import serve_batch, serve_batch_loop
     from repro_torch.models import build_model
 
@@ -1831,31 +1868,69 @@ def zoo_checks(dev, arch: str, kernels: dict) -> dict:
     del params
     loop = {"cut": cut, "batch": ZOO_LOOP_B, "prompt": S, "new_tokens": ZOO_LOOP_NEW,
             "tokens_equal": True, "flash_launches_bulk": bulk_launches}
+    return {"bulk_vs_loop": loop, "card_vs_cpu": card_vs_cpu(dev, arch)}
 
-    rcfg = published.reduced()
-    cpu_params = build_model(rcfg).init(2, device="cpu")
+
+def modal_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """``serve_batch``'s other inputs, drawn from ``seed``: an enc-dec's stub
+    frames (``frontend_tokens`` of them), a VLM's stub patch embeddings, or
+    none."""
+    from repro_torch.models.frontends import stub_audio_frames, stub_patch_embeddings
+
+    if cfg.is_encdec:
+        return {"frames": stub_audio_frames(seed, cfg, batch, device=device)}
+    if cfg.frontend == "vision":
+        return {"embeds": stub_patch_embeddings(seed, cfg, batch, device=device)}
+    return {}
+
+
+def modal_prefill(model, cfg, params, prompts, extra: dict, dev) -> torch.Tensor:
+    """The bulk prefill's last-position logits over ``prompts`` and the
+    model's frames or prefix (``modal_inputs``), from a fresh cache on
+    ``dev``."""
+    B, S = prompts.shape
+    with torch.inference_mode():
+        if cfg.is_encdec:
+            cache = model.init_cache(params, extra["frames"].to(dev), capacity=S)
+            return model.prefill(params, prompts.to(dev), cache)[0]
+        embeds = extra["embeds"].to(dev) if "embeds" in extra else None
+        P = 0 if embeds is None else embeds.shape[1]
+        return model.prefill(params, prompts.to(dev), model.init_cache(B, P + S, device=dev),
+                             embeds)[0]
+
+
+def card_vs_cpu(dev, arch: str) -> dict:
+    """``arch`` at ``reduced()`` in f32 on the card against the port on the
+    CPU, from the same weights and inputs (``modal_inputs``): equal greedy
+    tokens, and the prefill's logits within ZOO_CPU_TOL of their largest
+    magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    rcfg = get_config(arch).reduced()
+    model = build_model(rcfg)
+    cpu_params = model.init(2, device="cpu")
     params = tree_map(lambda t: t.to(dev), cpu_params)
     prompts = torch.randint(0, rcfg.vocab_size, (ZOO_CPU_B, ZOO_CPU_S), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(2))
-    model = build_model(rcfg)
-    with torch.inference_mode():
-        got, _ = model.prefill(params, prompts.to(dev),
-                               model.init_cache(ZOO_CPU_B, ZOO_CPU_S, device=dev))
-        want, _ = model.prefill(cpu_params, prompts,
-                                model.init_cache(ZOO_CPU_B, ZOO_CPU_S, device="cpu"))
+    extra_cpu = modal_inputs(rcfg, ZOO_CPU_B, 2, "cpu")
+    extra = {k: v.to(dev) for k, v in extra_cpu.items()}
+    got = modal_prefill(model, rcfg, params, prompts, extra, dev)
+    want = modal_prefill(model, rcfg, cpu_params, prompts, extra_cpu, "cpu")
     scale = float(want.abs().max())
     rel = float((got.cpu() - want).abs().max()) / scale
-    toks_card = serve_batch(rcfg, params, prompts, new_tokens=ZOO_CPU_NEW).cpu()
-    toks_cpu = serve_batch(rcfg, cpu_params, prompts, new_tokens=ZOO_CPU_NEW)
+    toks_card = serve_batch(rcfg, params, prompts, new_tokens=ZOO_CPU_NEW, **extra).cpu()
+    toks_cpu = serve_batch(rcfg, cpu_params, prompts, new_tokens=ZOO_CPU_NEW, **extra_cpu)
     if not (torch.isfinite(got).all() and rel <= ZOO_CPU_TOL):
         raise AssertionError(f"{arch} reduced: prefill logits card vs CPU {rel} of max {scale}")
     if not torch.equal(toks_card, toks_cpu):
         raise AssertionError(f"{arch} reduced: greedy tokens card vs CPU:\n{toks_card}\n{toks_cpu}")
-    return {"bulk_vs_loop": loop,
-            "card_vs_cpu": {"config": rcfg.name, "dtype": rcfg.dtype, "batch": ZOO_CPU_B,
-                            "prompt": ZOO_CPU_S, "new_tokens": ZOO_CPU_NEW, "tokens_equal": True,
-                            "logits_max_rel_err": rel, "logits_max_abs": scale,
-                            "tol": ZOO_CPU_TOL}}
+    return {"config": rcfg.name, "dtype": rcfg.dtype, "batch": ZOO_CPU_B,
+            "inputs": {k: list(v.shape) for k, v in extra.items()}, "prompt": ZOO_CPU_S,
+            "new_tokens": ZOO_CPU_NEW, "tokens_equal": True, "logits_max_rel_err": rel,
+            "logits_max_abs": scale, "tol": ZOO_CPU_TOL}
 
 
 def serving_zoo(dev, kernels: dict) -> tuple[dict, dict]:
@@ -1895,6 +1970,161 @@ def serving_zoo(dev, kernels: dict) -> tuple[dict, dict]:
         raise AssertionError("grok-1 (attn_logit_softcap 30) was served on the card")
     return {"card": torch.cuda.get_device_name(0), "models": records,
             "grok_softcap_on_card": grok_refusal}, launches
+
+
+def modal_checks(dev, arch: str, kernels: dict) -> dict:
+    """The two correctness checks of `serving_encdec` / `serving_prefix`.
+    (a) On the card, f32 at full width with the depth cut to
+    MODAL_CHECK_LAYERS: the enc-dec's bulk prefill + decode (``serve_batch``,
+    one ``flash_attention`` a decoder layer) gives the greedy tokens of its
+    token-at-a-time loop (``serve_batch_loop``, which launches none); the
+    VLM's prefill over its 256 patches + PREFIX_S tokens (flash) gives the
+    last text position's logits of the plain ``apply`` within ZOO_CPU_TOL of
+    their largest. (b) The card against the port on the CPU at ``reduced()``
+    in f32 from the same weights and inputs: equal greedy tokens, the
+    prefill's logits within ZOO_CPU_TOL of their largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch, serve_batch_loop
+    from repro_torch.models import build_model
+
+    published = get_config(arch)
+    cfg = published.replace(dtype="float32", n_layers=MODAL_CHECK_LAYERS)
+    cut = {"dtype": "float32", "n_layers": [published.n_layers, MODAL_CHECK_LAYERS]}
+    if cfg.is_encdec:
+        cut["encoder_layers"] = [published.encoder_layers, MODAL_CHECK_LAYERS]
+        cfg = cfg.replace(encoder_layers=MODAL_CHECK_LAYERS)
+    model = build_model(cfg)
+    params = model.init(1, device=dev)
+    S = ENCDEC_S if cfg.is_encdec else PREFIX_S
+    prompts = torch.randint(0, cfg.vocab_size, (MODAL_B, S), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+    extra = modal_inputs(cfg, MODAL_B, 1, dev)
+    flash = kernels["flash_attention"]
+    before = flash.LAUNCHES["flash_attention"]
+    first = {"cut": cut, "batch": MODAL_B, "inputs": {k: list(v.shape) for k, v in extra.items()},
+             "prompt": S}
+    if cfg.is_encdec:
+        fast = serve_batch(cfg, params, prompts, new_tokens=MODAL_NEW, **extra).cpu()
+        bulk = flash.LAUNCHES["flash_attention"] - before
+        slow = serve_batch_loop(cfg, params, prompts, new_tokens=MODAL_NEW, **extra).cpu()
+        loop = flash.LAUNCHES["flash_attention"] - before - bulk
+        if bulk != cfg.n_layers or loop:
+            raise AssertionError(f"{arch}: flash_attention launched {bulk} times in the bulk "
+                                 f"prefill (want {cfg.n_layers}), {loop} in the loop")
+        if not torch.equal(fast, slow):
+            raise AssertionError(f"{arch}: serve_batch != serve_batch_loop on the card:\n"
+                                 f"{fast}\n{slow}")
+        first.update(new_tokens=MODAL_NEW, tokens_equal=True, flash_launches_bulk=bulk)
+    else:
+        got = modal_prefill(model, cfg, params, prompts, extra, dev)
+        bulk = flash.LAUNCHES["flash_attention"] - before
+        with torch.inference_mode():
+            want = model.apply(params, prompts.to(dev), extra["embeds"])[0][:, -1]
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale
+        if bulk != cfg.n_layers or not (torch.isfinite(got).all() and rel <= ZOO_CPU_TOL):
+            raise AssertionError(f"{arch}: prefill ({bulk} flash launches) vs apply: {rel} of "
+                                 f"max {scale}")
+        first.update(flash_launches_prefill=bulk, prefill_vs_apply_max_rel_err=rel,
+                     logits_max_abs=scale, tol=ZOO_CPU_TOL)
+    del params
+    return {"bulk_vs_loop" if cfg.is_encdec else "prefill_vs_apply": first,
+            "card_vs_cpu": card_vs_cpu(dev, arch)}
+
+
+def serving_modal(dev, arch: str, kernels: dict) -> tuple[dict, dict]:
+    """`serving_encdec` / `serving_prefix`: ``arch`` at its published config
+    (full width and depth, bf16, weights from a seed) through ``serve_batch``:
+    MODAL_BATCHES batches of MODAL_B prompts with their stub frames or patch
+    embeddings, MODAL_NEW greedy tokens each. For the run, the serve
+    module's step builders and ``EncDecLM.init_cache`` are wrapped so that
+    the bulk prefill, each decode step and the encode are timed on the host
+    clock between two synchronisations. Asserts one ``flash_attention`` a
+    decoder layer a batch and one ``decode_attention`` a layer a token, and
+    equal tokens from every batch; profiles one batch; holds the served
+    tokens against the plain f32 model on the card (``check_served_tokens``,
+    after the launches are read); then ``modal_checks``. Returns (record,
+    launches)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import LeafSpec, tree_map
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import EncDecLM, build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    n_params = LeafSpec.of(model.abstract()).num_params
+    params = model.init(0, device=dev)
+    S = ENCDEC_S if cfg.is_encdec else PREFIX_S
+    prompts = torch.randint(0, cfg.vocab_size, (MODAL_B, S), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(0)).to(dev)
+    extra = modal_inputs(cfg, MODAL_B, 0, dev)
+    spans: dict[str, list] = {"encode": [], "prefill": [], "decode": []}
+
+    def timed(fn, bucket: str):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[bucket].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    originals = serve_mod.make_bulk_prefill_step, serve_mod.make_serve_step, EncDecLM.init_cache
+    serve_mod.make_bulk_prefill_step = lambda c, **kw: timed(originals[0](c, **kw), "prefill")
+    serve_mod.make_serve_step = lambda c, **kw: timed(originals[1](c, **kw), "decode")
+    EncDecLM.init_cache = timed(originals[2], "encode")
+    try:
+        serve_mod.serve_batch(cfg, params, prompts[:, :16], new_tokens=2, **extra)  # warm-up
+        for bucket in spans.values():
+            bucket.clear()
+        for wrapper in kernels.values():
+            wrapper.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        outs, walls = [], []
+        for _ in range(MODAL_BATCHES):
+            t0 = time.perf_counter()
+            outs.append(serve_mod.serve_batch(cfg, params, prompts, new_tokens=MODAL_NEW, **extra))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = {name: wrapper.LAUNCHES[name] for name, wrapper in kernels.items()}
+    finally:
+        serve_mod.make_bulk_prefill_step, serve_mod.make_serve_step, EncDecLM.init_cache = originals
+    peak_mem = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": cfg.n_layers * MODAL_BATCHES,
+            "decode_attention": cfg.n_layers * (MODAL_NEW - 1) * MODAL_BATCHES}
+    if launches != want:
+        raise AssertionError(f"{arch}: launched {launches}, want one flash_attention per decoder "
+                             f"layer per batch and one decode_attention per layer per token: {want}")
+    out = outs[0]
+    if out.shape != (MODAL_B, MODAL_NEW) or not ((out >= 0) & (out < cfg.vocab_size)).all() \
+            or any(not torch.equal(o, out) for o in outs):
+        raise AssertionError(f"{arch}: bad or unequal tokens over the batches: {outs}")
+    profiled = profile_call(lambda: serve_mod.serve_batch(cfg, params, prompts,
+                                                          new_tokens=MODAL_NEW, **extra),
+                            "serve_batch")
+    f32 = tree_map(lambda t: t.to(torch.float32), params)
+    del params
+    served = check_served_tokens(cfg, {0: (prompts, out, f32, tuple(extra.values()))})
+    del f32
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
+    record = {
+        "arch": cfg.name, "source": cfg.source, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model, "params": n_params,
+        "batch": MODAL_B, "inputs": {k: list(v.shape) for k, v in extra.items()}, "prompt": S,
+        "new_tokens": MODAL_NEW, "batches": MODAL_BATCHES, "batch_wall_ms": walls,
+        "encode_ms": spans["encode"] or None, "prefill_ms": spans["prefill"],
+        "prefill_ms_p50": pct(spans["prefill"], 50),
+        "decode_ms_p50": pct(spans["decode"], 50), "decode_ms_p99": pct(spans["decode"], 99),
+        "decode_tokens": len(spans["decode"]),
+        "tokens_per_s": MODAL_B * MODAL_NEW / (pct(walls, 50) / 1e3),
+        "peak_device_memory_bytes": peak_mem, "launches": launches, "profile": profiled,
+        "device_busy_share": (profiled["device_busy_ms"] / profiled["wall_ms"]
+                              if "wall_ms" in profiled else None),
+        "served_token_checks": served, "checks": modal_checks(dev, arch, kernels)}
+    return record, launches
 
 
 def federated_llm_phase(dev, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
@@ -1990,19 +2220,20 @@ def federated_llm_phase(dev, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
 
 def check_served_tokens(cfg, samples: dict) -> list[dict]:
     """Each kept batch (prompts, served tokens, an f32 copy of the weights it
-    was served on) against the plain f32 model on those weights, on the card,
-    teacher-forced on the served tokens: every token's logit is within
-    SERVED_TOL (of the position's largest logit magnitude) of the best. The
-    plain forward (``use_flash`` off) launches no kernel."""
+    was served on, and the model's other inputs: an enc-dec's frames or a
+    VLM's prefix, or none) against the plain f32 model on those weights, on
+    the card, teacher-forced on the served tokens: every token's logit is
+    within SERVED_TOL (of the position's largest logit magnitude) of the
+    best. The plain forward (``use_flash`` off) launches no kernel."""
     from repro_torch.models import build_model
 
     model = build_model(cfg.replace(dtype="float32"))
     checks = []
-    for counter, (prompts, tokens, params) in samples.items():
+    for counter, (prompts, tokens, params, extra) in samples.items():
         S = prompts.shape[1]
         seq = torch.cat([prompts, tokens[:, :-1]], dim=1)
         with torch.inference_mode():
-            logits, _ = model.apply(params, seq)
+            logits, _ = model.apply(params, seq, *extra)
         ref = logits[:, S - 1:, :cfg.vocab_size]
         best = ref.amax(dim=-1)
         got = ref.gather(-1, tokens.long()[..., None])[..., 0]
@@ -2044,7 +2275,7 @@ def federated_serving_phase(dev, kernels: dict) -> tuple[dict, dict]:
             # a copy: a later swap rewrites this weight set's leaves in place
             samples[dep.counter] = (
                 torch.as_tensor(prompts, device=dev), torch.as_tensor(out, device=dev),
-                tree_map(lambda t: t.to(torch.float32, copy=True), dep.params))
+                tree_map(lambda t: t.to(torch.float32, copy=True), dep.params), ())
         return out, meta
 
     for wrapper in kernels.values():
@@ -2350,11 +2581,18 @@ def main() -> None:
     profiles["ssd_scan"] = record["profile"]["prefill"]
 
     # -- 22. serving_zoo: MoE, RG-LRU and MLA decoders through the same path ----
-    record, zoo_launches = serving_zoo(dev, {"flash_attention": flash_kernel,
-                                             "decode_attention": dec_kernel})
+    attn_kernels = {"flash_attention": flash_kernel, "decode_attention": dec_kernel}
+    record, zoo_launches = serving_zoo(dev, attn_kernels)
     emit("serving_zoo", nvidia_smi=smi, **record)
     for name in zoo_launches:
         launches[name] += zoo_launches[name]
+
+    # -- 23. serving_encdec / 24. serving_prefix: the enc-dec and the VLM prefix
+    for phase, arch in (("serving_encdec", ENCDEC_ARCH), ("serving_prefix", PREFIX_ARCH)):
+        record, modal_launches = serving_modal(dev, arch, attn_kernels)
+        emit(phase, nvidia_smi=smi, **record)
+        for name in modal_launches:
+            launches[name] += modal_launches[name]
     emit("timer_check", **timer_check(timings, profiles))
 
     # -- summary ----------------------------------------------------------------
@@ -2370,12 +2608,19 @@ def main() -> None:
                                     "src/repro/kernels/decode_attention/kernel.py:61"),
                "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                             "src/repro/kernels/ssd_scan/kernel.py:64")}
+    # each attention kernel also at the zoo's served shapes (time_attention)
+    at_shapes = {name: [{"model": t["model"], "shape": t["shape"], "ms": t["kernel_ms"],
+                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                        for t in timings if t["name"] == name and "model" in t]
+                 for name in sources}
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
         "ms": main_shape[name]["kernel_ms"], "plain_ms": main_shape[name]["plain_ms"],
         "bound_ms": main_shape[name]["bound_ms"], "bound_by": main_shape[name]["bound_by"],
         "library_ms": main_shape[name]["library_ms"],
+        **({"at_served_shapes": at_shapes[name]} if at_shapes[name] else {}),
     } for name, (source, replaces) in sources.items()]
     for k in kernels:
         if k["launches"] < 1:

@@ -3,7 +3,8 @@ the port of ``repro.launch.serve``.
 
     python -m repro_torch.launch.serve --arch mamba2-130m --reduced --batch 4 --new-tokens 16
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given. An enc-dec (``--arch
+seamless-m4t-medium``) is fed 64 stub audio frames per prompt.
 """
 from __future__ import annotations
 
@@ -16,47 +17,61 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.launch.steps import make_bulk_prefill_step, make_serve_step
 from repro_torch.models import build_model
+from repro_torch.models.frontends import stub_audio_frames
 
 
-def _prompts_on(params, prompts) -> torch.Tensor:
-    if not isinstance(prompts, torch.Tensor):
-        prompts = torch.from_numpy(np.asarray(prompts))
-    return prompts.to(device=params["embed"]["table"].device, dtype=torch.int32)
+def _on(params, x, dtype=None) -> torch.Tensor:
+    """``x`` (a tensor or an array) on the parameters' device."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x))
+    return x.to(device=params["embed"]["table"].device, dtype=dtype)
 
 
-def serve_batch(cfg, params, prompts, *, new_tokens: int) -> torch.Tensor:
+def _init_cache(cfg, model, params, B: int, capacity: int, frames):
+    if cfg.is_encdec:
+        with torch.inference_mode():
+            return model.init_cache(params, _on(params, frames), capacity=capacity)
+    return model.init_cache(B, capacity=capacity, device=params["embed"]["table"].device)
+
+
+def serve_batch(cfg, params, prompts, *, new_tokens: int, frames=None,
+                embeds=None) -> torch.Tensor:
     """prompts: (B, S) int → (B, new_tokens) int32 greedy continuations, on
     the parameters' device.
 
     One ``bulk_prefill_step`` fills the decode cache from the whole prompt
     (its argmax IS the first generated token), then ``serve_step`` extends
-    one token at a time."""
+    one token at a time. An enc-dec's ``frames`` (B, T, D) are encoded once
+    into its cache; a VLM's ``embeds`` (B, P, D) prefix takes positions
+    0…P−1, so decode positions start past it."""
     model = build_model(cfg)
-    prompts = _prompts_on(params, prompts)
+    prompts = _on(params, prompts, torch.int32)
     B, S = prompts.shape
-    cache = model.init_cache(B, capacity=S + new_tokens, device=prompts.device)
+    n_prefix = 0 if embeds is None else embeds.shape[1]
+    cache = _init_cache(cfg, model, params, B, n_prefix + S + new_tokens, frames)
     prefill = make_bulk_prefill_step(cfg)
     serve_step = make_serve_step(cfg)
-    tok, cache = prefill(params, prompts, cache)
+    tok, cache = prefill(params, prompts, cache, None if embeds is None else _on(params, embeds))
     out = [tok]
     for t in range(1, new_tokens):
-        tok, cache = serve_step(params, tok, cache, S - 1 + t)
+        tok, cache = serve_step(params, tok, cache, n_prefix + S - 1 + t)
         out.append(tok)
     return torch.stack(out, dim=1)
 
 
-def serve_batch_loop(cfg, params, prompts, *, new_tokens: int) -> torch.Tensor:
+def serve_batch_loop(cfg, params, prompts, *, new_tokens: int, frames=None) -> torch.Tensor:
     """Token-at-a-time reference: the prompt is pushed through ``serve_step``
     one position at a time. The equivalence oracle for ``serve_batch``: on
     the card it runs the decode path alone, where ``serve_batch`` prefills
-    through the flash_attention (GQA) or ssd_scan (Mamba2) kernel. (An MoE
-    model agrees only while batch x prompt ≤ 64 tokens: above that the bulk
-    prefill takes the Switch capacity and drops overflow, as the
-    reference's does, where each decode step keeps every choice.)"""
+    through the flash_attention (GQA, the enc-dec's decoder) or ssd_scan
+    (Mamba2) kernel. (An MoE model agrees only while batch x prompt ≤ 64
+    tokens: above that the bulk prefill takes the Switch capacity and drops
+    overflow, as the reference's does, where each decode step keeps every
+    choice.)"""
     model = build_model(cfg)
-    prompts = _prompts_on(params, prompts)
+    prompts = _on(params, prompts, torch.int32)
     B, S = prompts.shape
-    cache = model.init_cache(B, capacity=S + new_tokens, device=prompts.device)
+    cache = _init_cache(cfg, model, params, B, S + new_tokens, frames)
     serve_step = make_serve_step(cfg)
     for t in range(1, S):
         _, cache = serve_step(params, prompts[:, t - 1], cache, t - 1)
@@ -85,8 +100,11 @@ def main(argv=None):
     params = build_model(cfg).init(args.seed, device=args.device)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    kwargs = {}
+    if cfg.is_encdec:
+        kwargs["frames"] = stub_audio_frames(args.seed, cfg, args.batch, 64, device=args.device)
     t0 = time.time()
-    out = serve_batch(cfg, params, prompts, new_tokens=args.new_tokens).cpu().numpy()
+    out = serve_batch(cfg, params, prompts, new_tokens=args.new_tokens, **kwargs).cpu().numpy()
     dt = time.time() - t0
     tps = args.batch * (args.prompt_len + args.new_tokens) / dt
     print(f"arch={cfg.name} batch={args.batch} tokens/s={tps:.1f}")

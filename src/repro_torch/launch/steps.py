@@ -1,6 +1,7 @@
 """Step builders — the port of ``repro.launch.steps``: ``make_train_step``
-(one optimizer step, optionally over micro-batches), and the serving steps
-``make_bulk_prefill_step`` and ``make_serve_step``.
+(one optimizer step, optionally over micro-batches), the cache-less
+``make_prefill_step`` probe, and the serving steps ``make_bulk_prefill_step``
+and ``make_serve_step``.
 
 Plain functions on tensors. The train step updates the parameter and moment
 tensors in place (and returns them); its forward takes the plain attention
@@ -67,16 +68,42 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
     return train_step
 
 
+def _greedy(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    return logits[:, : cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """(params, batch) → (next token (B,) int32, last position's logits): the
+    cache-less full forward (``apply``, plain attention), over ``tokens`` and
+    the enc-dec's ``frames`` or a VLM's ``embeds``."""
+    model = build_model(cfg)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        if cfg.is_encdec:
+            logits, _ = model.apply(params, batch["tokens"], batch["frames"])
+        else:
+            logits, _ = model.apply(params, batch["tokens"], batch.get("embeds"))
+        return _greedy(cfg, logits[:, -1]), logits[:, -1]
+
+    return prefill_step
+
+
 def make_bulk_prefill_step(cfg: ModelConfig, *, window_override: int | None = None) -> Callable:
     """Cache-filling bulk prefill for serving: one full-sequence pass fills a
-    fresh decode cache (``model.prefill``) and returns the greedy next token."""
+    fresh decode cache (``model.prefill``) and returns the greedy next token.
+    ``extra_embeds`` is a decoder's prefix; an enc-dec's cache already holds
+    its encoded memory."""
     model = build_model(cfg)
 
     @torch.inference_mode()
     def bulk_prefill_step(params, tokens, cache, extra_embeds=None):
-        logits, cache = model.prefill(params, tokens, cache, extra_embeds,
-                                      window_override=window_override)
-        return logits[:, : cfg.vocab_size].argmax(dim=-1).to(torch.int32), cache
+        if cfg.is_encdec:
+            logits, cache = model.prefill(params, tokens, cache, window_override=window_override)
+        else:
+            logits, cache = model.prefill(params, tokens, cache, extra_embeds,
+                                          window_override=window_override)
+        return _greedy(cfg, logits), cache
 
     return bulk_prefill_step
 
@@ -88,6 +115,6 @@ def make_serve_step(cfg: ModelConfig, *, window_override: int | None = None) -> 
     def serve_step(params, token, cache, pos):
         logits, cache = model.decode_step(params, token, cache, pos,
                                           window_override=window_override)
-        return logits[:, : cfg.vocab_size].argmax(dim=-1).to(torch.int32), cache
+        return _greedy(cfg, logits), cache
 
     return serve_step

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.tree import LeafSpec, as_tensor, tree_leaves, tree_unflatten
+from repro_torch.core.tree import (LeafSpec, PyTree, as_tensor, tree_flatten_with_path,
+                                   tree_leaves, tree_unflatten)
 from repro_torch.core.tree import torch_dtype as _torch_dtype
 from repro_torch.kernels import resolve_device
 
@@ -156,6 +157,22 @@ class ModelConfig:
 # --------------------------------------------------------------------------
 
 
+def seeded_generator(rng: "int | torch.Generator", device) -> torch.Generator:
+    """``rng`` itself if it is a generator, else a generator on ``device``
+    seeded with it."""
+    if isinstance(rng, torch.Generator):
+        return rng
+    return torch.Generator(device=resolve_device(device)).manual_seed(int(rng))
+
+
+def unstack(stacked: PyTree, n: int) -> list:
+    """Per-layer views of a tree whose leaves share a leading axis of ``n``:
+    one ``unbind`` per leaf, so in-place writes land in the stacked leaves."""
+    leaves, treedef = tree_flatten_with_path(stacked)
+    per_leaf = [leaf.unbind(0) for _, leaf in leaves]
+    return [tree_unflatten(treedef, [views[i] for views in per_leaf]) for i in range(n)]
+
+
 def _normal(gen, shape, dtype, std: float) -> torch.Tensor:
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
@@ -203,6 +220,13 @@ def embedding_init(gen, vocab: int, d: int, dtype) -> dict:
 
 def embedding_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, p["table"])
+
+
+def scaled_embedding(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings times sqrt(d_model), the scale rounded to the model's
+    dtype first, as the reference's decoders scale them."""
+    scale = torch.tensor(cfg.d_model**0.5, dtype=cfg.torch_dtype).item()
+    return embedding_apply(p, tokens) * scale
 
 
 def unembed_apply(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -25,16 +25,16 @@ of GQA attention (``attn`` and ``moe_attn`` blocks) and of ``ssm`` blocks.
 ``remat=True`` recomputes each layer group in the backward
 (``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``).
 
-Encoder-decoders and VLM / audio prefixes are not ported yet (ROADMAP Queue
-1, item 17's remainder): building an encoder-decoder raises
-``NotImplementedError``, and so does a forward given prefix embeddings.
+A VLM prefix (``extra_embeds``: stub patch embeddings, ``models.frontends``)
+is concatenated in front of the scaled token embeddings and occupies
+positions 0…P−1; ``apply`` returns the logits of the text positions only.
+Encoder-decoders are ``models.encdec.EncDecLM``.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.tree import tree_flatten_with_path, tree_unflatten
 from repro_torch.kernels import resolve_device
 
 from . import attention as attn_mod
@@ -43,24 +43,18 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .common import (
     ModelConfig,
-    embedding_apply,
     embedding_init,
     mlp_apply,
     mlp_init,
     rmsnorm_apply,
     rmsnorm_init,
+    scaled_embedding,
+    seeded_generator,
     softmax_cross_entropy,
     token_accuracy,
     unembed_apply,
+    unstack,
 )
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port lacks: encoder-decoders."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported to PyTorch yet (ROADMAP "
-            "Queue 1, item 17's remainder: enc-dec and prefixes); the port builds decoder-only "
-            "models of every block kind (attn, moe_attn, ssm, rglru; GQA and MLA)")
 
 
 def _init_block(gen, cfg: ModelConfig, kind: str, lead: tuple = ()) -> dict:
@@ -174,7 +168,6 @@ def _cache_capacity(cfg: ModelConfig, capacity: int) -> int:
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        check_supported(cfg)
         self.cfg = cfg
         self.pattern = cfg.pattern
         U = len(self.pattern)
@@ -200,11 +193,7 @@ class DecoderLM:
              device: "str | torch.device" = "cuda") -> dict:
         """Random parameters drawn on ``device`` from a seed (or a generator
         on that device)."""
-        if isinstance(rng, torch.Generator):
-            gen = rng
-        else:
-            gen = torch.Generator(device=resolve_device(device)).manual_seed(int(rng))
-        return self._build(gen)
+        return self._build(seeded_generator(rng, device))
 
     def abstract(self) -> dict:
         """The parameter tree as meta tensors: shapes and dtypes, no memory."""
@@ -213,12 +202,8 @@ class DecoderLM:
     # -- layer iteration ----------------------------------------------------------
     def _per_group(self, stacked: dict) -> list[dict]:
         """Per-group views of a stacked tree ({key: leaves with a leading
-        group axis}, a ``tail`` entry aside): one ``unbind`` per leaf."""
-        leaves, treedef = tree_flatten_with_path(
-            {key: sub for key, sub in stacked.items() if key != "tail"})
-        per_leaf = [leaf.unbind(0) for _, leaf in leaves]
-        return [tree_unflatten(treedef, [views[g] for views in per_leaf])
-                for g in range(self.n_groups)]
+        group axis}, a ``tail`` entry aside)."""
+        return unstack({key: sub for key, sub in stacked.items() if key != "tail"}, self.n_groups)
 
     def _layers(self, params: dict, cache: dict | None = None):
         """(kind, block params, block cache) per layer, in order. Stacked groups
@@ -235,14 +220,11 @@ class DecoderLM:
             yield kind, params["tail"][key], None if cache is None else cache["tail"][key]
 
     def _embed(self, params, tokens, extra_embeds=None):
+        x = scaled_embedding(params["embed"], self.cfg, tokens)
         if extra_embeds is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: VLM / audio prefix embeddings are not ported yet (ROADMAP "
-                "Queue 1, item 17's remainder: enc-dec and prefixes)")
-        cfg = self.cfg
-        # the reference scales by sqrt(d_model) rounded to the model's dtype
-        scale = torch.tensor(cfg.d_model**0.5, dtype=cfg.torch_dtype).item()
-        return embedding_apply(params["embed"], tokens) * scale
+            # VLM / audio-LM: prepend the stub modality embeddings
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        return x
 
     def _logits(self, params, x):
         x = rmsnorm_apply(params["final_norm"], x, self.cfg.norm_eps)
@@ -259,12 +241,14 @@ class DecoderLM:
 
     def apply(self, params, tokens, extra_embeds=None, *, window_override=None,
               remat: bool = False, use_flash: bool = False):
-        """→ (logits (B,S,padded_vocab), aux_loss)."""
+        """→ (logits (B,S_text,padded_vocab), aux_loss): with ``extra_embeds``
+        (B,P,D) in front, only the S_text token positions produce logits."""
         if remat and self.cfg.remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy={self.cfg.remat_policy!r} is not ported; the port recomputes "
                 "whole layer groups ('full')")
         x = self._embed(params, tokens, extra_embeds)
+        n_text = tokens.shape[1]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group in self._per_group(params["blocks"]):
             if remat and torch.is_grad_enabled():
@@ -277,7 +261,7 @@ class DecoderLM:
                                      window_override=window_override, use_flash=use_flash)
             if a is not None:
                 aux = aux + a
-        return self._logits(params, x), aux
+        return self._logits(params, x[:, -n_text:]), aux
 
     # -- loss -------------------------------------------------------------------
     def loss(self, params, batch, rng=None, *, remat: bool = False, use_flash: bool = False):
@@ -319,8 +303,10 @@ class DecoderLM:
     def prefill(self, params, tokens, cache, extra_embeds=None, *, window_override=None):
         """Bulk prefill: one full-sequence pass that fills a *fresh* decode
         cache (``init_cache``) in place and returns the last position's
-        logits. Positions start at 0 (an ``ssm`` block seeds its scan from the
-        cache's state, zeros when fresh). → (logits (B, padded_vocab), cache)."""
+        logits. Positions start at 0: a prefix (``extra_embeds``, P positions)
+        fills 0…P−1 and the prompt P…P+S−1 (an ``ssm`` block seeds its scan
+        from the cache's state, zeros when fresh). → (logits (B,
+        padded_vocab), cache)."""
         x = self._embed(params, tokens, extra_embeds)
         for kind, p, c in self._layers(params, cache):
             x, _ = _apply_block_prefill(p, self.cfg, kind, x, c, window_override=window_override)

@@ -163,9 +163,9 @@ class ServingNode:
             cfg = cfg.reduced()
         if cfg.is_encdec:
             raise ValueError(
-                "ServingNode covers decoder-only archs (the federated zoo), as the "
-                "reference's does; enc-dec models are not ported yet (ROADMAP Queue 1, "
-                "item 17's remainder)")
+                "ServingNode covers decoder-only archs (the federated zoo), by the "
+                "reference's design; use repro_torch.launch.serve.serve_batch for enc-dec "
+                "one-shots")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)

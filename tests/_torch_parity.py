@@ -4,6 +4,8 @@ packages."""
 import jax
 import numpy as np
 
+from repro_torch.core.tree import as_numpy
+
 
 def np_params(jax_model, seed: int) -> dict:
     """Parameters in ``jax_model``'s layout (found without running its init),
@@ -20,3 +22,13 @@ def np_params(jax_model, seed: int) -> dict:
     return jax.tree_util.tree_map_with_path(
         lambda p, s: leaf(jax.tree_util.keystr(p, simple=True, separator="/"),
                           s.shape).astype(np.float32), shapes)
+
+
+def assert_rel_close(got, want, msg: str = "", tol: float = 1e-4) -> None:
+    """|got − want| ≤ tol · max|want|: the reference's f32 tolerance (1e-4)
+    of the largest magnitude. ``got`` a tensor or array, ``want`` an array."""
+    got, want = as_numpy(got).astype(np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (msg, got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= tol, f"{msg}: max abs err {err * scale} = {err} of max |want| {scale}"

@@ -145,6 +145,8 @@ def assert_attention_close(got, want, dtype):
     (1, 96, 1, 64, 64, 0),      # the widest group: one position per q tile
     (1, 64, 1, 32, 256, 16),    # the widest group at hd 256, windowed
     (1, 1, 2, 4, 64, 0),        # S = 1
+    (4, 64, 16, 1, 64, 0),      # seamless-m4t-medium's decoder prefill: KV 16, G 1
+    (4, 512, 2, 7, 64, 0),      # internvl2-1b's prefix + text: G 7, 9 positions a tile
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, KV, G, hd, window):
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -166,6 +168,8 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, KV, G, hd, wind
     (2, 8, 4, 64, 1), (1, 2, 5, 128, 63), (8, 8, 4, 64, 32768), (2, 2, 16, 64, 1000),
     (1, 16, 1, 256, 576), (2, 2, 4, 32, 100),
     (1, 1, 16, 256, 576),       # the largest block: G 16 at hd 256 (recurrentgemma-9b's group)
+    (4, 16, 1, 64, 96),         # seamless-m4t-medium's decoder: 64 prompt + 32 new tokens
+    (4, 2, 7, 64, 544),         # internvl2-1b's: 256 patches + 256 text + 32 new tokens
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, B, KV, G, hd, C):
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -570,6 +574,39 @@ def test_zoo_serving_runs_the_attention_kernels_per_attention_layer(cuda, arch, 
     assert dk.LAUNCHES["decode_attention"] == 4 * attn_layers
     slow = serve_batch_loop(cfg, params, prompts, new_tokens=5)
     assert torch.equal(fast, slow)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_encdec_and_prefix_serving_run_the_attention_kernels(cuda, arch):
+    """At reduced(), f32: the enc-dec's decoder and the VLM's prefix + prompt
+    prefill through flash_attention (one a decoder layer) and decode through
+    decode_attention (one a layer a token); the greedy tokens equal the
+    port's on the CPU from the same weights, and the enc-dec's bulk prefill
+    equals its decode-only loop."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import serve_batch, serve_batch_loop
+    from repro_torch.models import build_model
+    from repro_torch.models.frontends import stub_audio_frames, stub_patch_embeddings
+
+    cfg = get_config(arch).reduced()
+    cpu_params = build_model(cfg).init(0, device="cpu")
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)
+    if cfg.is_encdec:
+        extra = {"frames": stub_audio_frames(1, cfg, 2, 40, device="cpu")}
+    else:
+        extra = {"embeds": stub_patch_embeddings(1, cfg, 2, device="cpu")}
+    fk.reset_launches()
+    dk.reset_launches()
+    fast = serve_batch(cfg, params, prompts, new_tokens=5, **extra)
+    assert fk.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert dk.LAUNCHES["decode_attention"] == 4 * cfg.n_layers
+    assert torch.equal(fast.cpu(), serve_batch(cfg, cpu_params, prompts, new_tokens=5, **extra))
+    if cfg.is_encdec:
+        assert torch.equal(fast, serve_batch_loop(cfg, params, prompts, new_tokens=5, **extra))
 
 
 def test_grok_softcap_still_refuses_the_card(cuda):
