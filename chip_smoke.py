@@ -44,7 +44,17 @@ main paths end to end:
   an utterance, internvl2-1b on 256 stub patch embeddings + 256 text
   tokens (``flash_attention`` in the decoder's prefill, ``decode_attention``
   a token), each held against the plain f32 model, in f32 at two layers
-  (bulk == loop; prefill == ``apply``), and card-vs-CPU.
+  (bulk == loop; prefill == ``apply``), and card-vs-CPU;
+* grok-1, whose logit softcap takes the capped plain attention on every
+  device as the reference routes it: full width, one layer, weights drawn on
+  the card, through ``serve_batch`` (no attention kernel may launch), and
+  card-vs-CPU at ``reduced()``;
+* the launch layer: ``api.serve(mesh=)`` on a world-1 NCCL mesh in a child
+  process (granite-3-2b at 8 layers, mamba2-130m whole; each kernel on the
+  local shards through ``local_map``, tokens equal to the mesh-less path's),
+  ``launch.costs.step_costs`` of the served steps beside their measured p50s
+  (the share of the roofline), and ``python -m repro_torch.launch.dryrun`` on
+  the fake 16 x 16 mesh (CPU only, beside `serving_zoo`).
 
 Prints one JSON line per phase, then the card's name and power limit, the
 kernel summary and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -58,6 +68,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -157,6 +168,32 @@ ZOO_LOOP_S = {"llama4-scout-17b-a16e": 32, "recurrentgemma-9b": 300, "minicpm3-4
 # within ZOO_CPU_TOL of their largest magnitude. 2 x 80 tokens: past the
 # reduced window of 64 and past the MoE's 64-token capacity rule.
 ZOO_CPU_B, ZOO_CPU_S, ZOO_CPU_NEW, ZOO_CPU_TOL = 2, 80, 8, 2e-5
+# grok-1 (logit softcap 30: plain capped attention on every device, as the
+# reference routes it) at full width, bf16, one layer (5.73 B parameters,
+# 11.5 GB, drawn on the card: the ~22 B of host a parameter that ServingNode
+# holds would not fit), through serve_batch: GROK_B prompts x GROK_S tokens,
+# GROK_NEW greedy tokens.
+GROK_ARCH, GROK_LAYERS, GROK_B, GROK_S, GROK_NEW = "grok-1-314b", 1, 4, 256, 16
+# Serving on a device mesh: a world-1 NCCL group (FileStore) and its (1, 1)
+# host mesh, in a child process; `serving`'s path with mesh= (arch, layers,
+# batch, prompt, new tokens). granite-3-2b cut to MESH_GRANITE_LAYERS layers
+# (DTensor dispatch costs host time in every op), mamba2-130m whole. Its
+# prefill logits against the mesh-less path's within MESH_LOGITS_TOL of their
+# largest (f32, MESH_CHECK_B x MESH_CHECK_S prompts).
+MESH_GRANITE_LAYERS = 8
+MESH_SERVING = [(SERVE_ARCH, MESH_GRANITE_LAYERS, SERVE_B, SERVE_S, SERVE_NEW),
+                (SSM_ARCH, None, SSM_B, SSM_S, SSM_NEW)]
+MESH_LOGITS_TOL, MESH_CHECK_B, MESH_CHECK_S = 1e-6, 2, 256
+MESH_CHILD_TIMEOUT_S = 400
+# Whole-step costs (launch.costs.step_costs, meta tensors) of the serving
+# phases' steps at full width and depth: granite's bulk prefill (SERVE_B x
+# SERVE_S) and one decode step (SERVE_B tokens against a ring of SERVE_S +
+# SERVE_NEW), mamba2's (SSM_B x SSM_S; one token).
+# The dry run (python -m repro_torch.launch.dryrun) on the fake 16x16 mesh,
+# in the background from serving_zoo on (CPU only), each combination capped.
+DRYRUN = [("granite-3-2b", "decode_32k"), ("granite-3-2b", "prefill_32k"),
+          ("mamba2-130m", "decode_32k"), ("llama4-scout-17b-a16e", "decode_32k")]
+DRYRUN_TIMEOUT_S = 420
 # The two LM examples (repro_torch.examples): federated_llm at its full
 # widths, 3 nodes x FED_LLM_EPOCHS epochs (the example's 10 cut to 2) x 30
 # steps, with delta(chain=4) and adapters-only; federated_serving whole.
@@ -832,14 +869,15 @@ def host_memory(n_params: int) -> dict:
 
 
 def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
-            kernels: dict, n_layers: int | None = None) -> tuple[dict, dict]:
+            kernels: dict, n_layers: int | None = None, mesh=None) -> tuple[dict, dict]:
     """The serving tier end to end, ``arch`` at full width in bf16 (at
     ``n_layers`` where given, else its published depth): publish → deploy →
     batches of ``batch`` prompts x ``prompt`` tokens, bulk prefill +
     ``new_tokens`` greedy tokens → a second push hot-swapped in under traffic
     → a batch on the new weights. ``kernels`` maps each kernel of the path to
     its wrapper module, whose launch count is set to 0 just before the traffic
-    and read just after. The store's blobs are deleted once the run has
+    and read just after. With ``mesh`` the node places its weights there
+    (``api.serve(mesh=)``). The store's blobs are deleted once the run has
     passed. Returns (phase record, launches)."""
     import gc
     import resource
@@ -879,7 +917,7 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
     torch.cuda.reset_peak_memory_stats()
     mem_at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    node = serve(uri, cfg, poll_interval=0.05, wait=900.0, node_id="server-0")
+    node = serve(uri, cfg, poll_interval=0.05, wait=900.0, node_id="server-0", mesh=mesh)
     try:
         if not node.stats()["deployed"]:
             raise AssertionError("the serving node deployed nothing within 900 s")
@@ -922,10 +960,11 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
         stats = node.stats()
         swap_log = node.swap_log()
         # where a batch's time goes: prefill alone, then prefill + 16 tokens
-        profiled = {"prefill": profile_call(lambda: node.generate(prompts, new_tokens=1),
-                                            "generate"),
-                    "prefill_and_16_tokens": profile_call(
-                        lambda: node.generate(prompts, new_tokens=17), "generate")}
+        # (not on a mesh: there DTensor's host dispatch leads, PERF.md §5)
+        profiled = None if mesh is not None else {
+            "prefill": profile_call(lambda: node.generate(prompts, new_tokens=1), "generate"),
+            "prefill_and_16_tokens": profile_call(
+                lambda: node.generate(prompts, new_tokens=17), "generate")}
     finally:
         node.stop()
     peak_mem = torch.cuda.max_memory_allocated()
@@ -985,7 +1024,8 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
         "swaps": stats["swaps"], "peak_device_memory_bytes": peak_mem,
         "device_memory_at_start_bytes": mem_at_start, **host,
         "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-        "launches": launches, "profile": profiled}
+        "launches": launches, "profile": profiled,
+        "mesh": None if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))}
     folder = make_folder(uri)  # the process-wide named folder: free its blobs
     for key in list(folder.keys()):
         folder.delete(key)
@@ -1939,11 +1979,9 @@ def serving_zoo(dev, kernels: dict) -> tuple[dict, dict]:
     with its two ``zoo_checks``; the launches of ``flash_attention`` (one per
     attention layer per prefill) and ``decode_attention`` (one per attention
     layer per decoded token) asserted per model (none for MLA, which runs
-    plain attention). grok-1, the zoo's other MoE model, must still refuse the
-    card: its logit softcap has no kernel. Returns (records, launches)."""
+    plain attention). grok-1, the zoo's other MoE model, has its own phase
+    (`serving_grok`). Returns (records, launches)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import build_model
 
     records, launches = [], {name: 0 for name in kernels}
     for arch, n_layers, prompt in ZOO:
@@ -1960,16 +1998,7 @@ def serving_zoo(dev, kernels: dict) -> tuple[dict, dict]:
         records.append(record)
         for name in launches:
             launches[name] += got[name]
-    grok = get_config("grok-1-314b").reduced()
-    try:
-        serve_batch(grok, build_model(grok).init(0, device=dev),
-                    torch.zeros((1, 4), dtype=torch.int32), new_tokens=2)
-    except NotImplementedError as e:
-        grok_refusal = str(e)
-    else:
-        raise AssertionError("grok-1 (attn_logit_softcap 30) was served on the card")
-    return {"card": torch.cuda.get_device_name(0), "models": records,
-            "grok_softcap_on_card": grok_refusal}, launches
+    return {"card": torch.cuda.get_device_name(0), "models": records}, launches
 
 
 def modal_checks(dev, arch: str, kernels: dict) -> dict:
@@ -2309,6 +2338,247 @@ def federated_serving_phase(dev, kernels: dict) -> tuple[dict, dict]:
             "launches": launches}, launches
 
 
+def serving_grok(dev, kernels: dict) -> dict:
+    """grok-1 on the card. Its logit softcap takes the capped plain attention
+    on every device, as the reference routes it, so neither attention kernel
+    may launch. First the card against the CPU at ``reduced()`` in f32
+    (``card_vs_cpu``), then full width in bf16 at GROK_LAYERS layers, weights
+    drawn on the card, through ``serve_batch``: GROK_B x GROK_S prompts,
+    GROK_NEW greedy tokens, timed; the tokens must lie in the vocab and the
+    prefill's logits be finite."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import LeafSpec
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    for wrapper in kernels.values():
+        wrapper.reset_launches()
+    check = card_vs_cpu(dev, GROK_ARCH)
+    published = get_config(GROK_ARCH)
+    cfg = published.replace(n_layers=GROK_LAYERS)
+    model = build_model(cfg)
+    n_params = LeafSpec.of(model.abstract()).num_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (GROK_B, GROK_S),
+                                                dtype=np.int32)
+    serve_batch(cfg, params, prompts[:, :16], new_tokens=2)  # warm-up
+    timings = []
+    for new in (1, GROK_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_batch(cfg, params, prompts, new_tokens=new).cpu().numpy()
+        timings.append(time.perf_counter() - t0)
+    with torch.inference_mode():
+        logits = model.prefill(params, torch.from_numpy(prompts).to(dev),
+                               model.init_cache(GROK_B, GROK_S, device=dev))[0]
+    torch.cuda.synchronize()
+    launches = {name: wrapper.LAUNCHES[name] for name, wrapper in kernels.items()}
+    if any(launches.values()):
+        raise AssertionError(f"grok-1 (softcap) launched an attention kernel: {launches}")
+    if not (torch.isfinite(logits).all() and out.shape == (GROK_B, GROK_NEW)
+            and ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"grok-1: bad output (tokens {out.shape}, finite logits "
+                             f"{bool(torch.isfinite(logits).all())})")
+    peak = torch.cuda.max_memory_allocated()
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "reduced": {"n_layers": [published.n_layers, cfg.n_layers]}, "params": n_params,
+            "attn_logit_softcap": cfg.attn_logit_softcap, "batch": GROK_B, "prompt": GROK_S,
+            "new_tokens": GROK_NEW, "init_on_card_s": init_s, "prefill_ms": timings[0] * 1e3,
+            "decode_ms_per_token": (timings[1] - timings[0]) / (GROK_NEW - 1) * 1e3,
+            "peak_device_memory_bytes": peak, "launches": launches, "card_vs_cpu": check}
+
+
+def mesh_serving_child(root: str, out: str) -> None:
+    """The `mesh_serving` phase's child process: a world-1 NCCL group (a
+    FileStore under ``root``) and its (1, 1) host mesh; `serving`'s path with
+    ``mesh=`` for each of MESH_SERVING (tokens equal to serve_batch's on the
+    pushed weights without a mesh, launches read around the traffic), then the
+    prefill logits on DTensor weights against the mesh-less path's. Writes
+    its records to ``out``; any failure raises (a non-zero exit)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import data_axes, make_host_mesh, start_group
+    from repro_torch.launch.sharding import distribute, param_shardings, serve_cache_shardings
+    from repro_torch.models import build_model
+    from repro_torch.models.sharded import serving_mode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    start_group(os.path.join(root, "pg"), rank=0, world_size=1, device="cuda")
+    try:
+        mesh = make_host_mesh()
+        kernels = {"flash_attention": flash_kernel, "decode_attention": dec_kernel,
+                   "ssd_scan": ssd_kernel}
+        records = []
+        for arch, n_layers, batch, prompt, new in MESH_SERVING:
+            record, launches = serving(dev, arch, batch, prompt, new, kernels,
+                                       n_layers=n_layers, mesh=mesh)
+            L, nb = record["n_layers"], record["batches"]
+            want = ({"flash_attention": 0, "decode_attention": 0, "ssd_scan": L * nb}
+                    if arch == SSM_ARCH else
+                    {"flash_attention": L * nb, "decode_attention": L * (new - 1) * nb,
+                     "ssd_scan": 0})
+            if launches != want:
+                raise AssertionError(f"{arch} on the mesh launched {launches}, want {want}")
+            # prefill logits, f32: DTensor weights against the same weights plain
+            cfg = get_config(arch).replace(dtype="float32",
+                                           n_layers=n_layers or get_config(arch).n_layers)
+            model = build_model(cfg)
+            params = model.init(3, device=dev)
+            dparams = distribute(params, param_shardings(params, mesh))
+            prompts = torch.randint(0, cfg.vocab_size, (MESH_CHECK_B, MESH_CHECK_S),
+                                    generator=torch.Generator().manual_seed(3),
+                                    dtype=torch.int32).to(dev)
+            with torch.inference_mode():
+                cache = model.init_cache(MESH_CHECK_B, MESH_CHECK_S, device=dev)
+                logits = [model.prefill(params, prompts, cache)[0]]
+            cache = model.init_cache(MESH_CHECK_B, MESH_CHECK_S, device=dev)
+            cache = distribute(cache, serve_cache_shardings(cache, mesh))
+            tokens = shard_batch({"t": prompts}, mesh, batch_axes=data_axes(mesh))["t"]
+            with serving_mode(dparams):
+                logits.append(model.prefill(dparams, tokens, cache)[0].full_tensor())
+            scale = float(logits[0].abs().max())
+            rel = float((logits[1] - logits[0]).abs().max()) / scale
+            if not (torch.isfinite(logits[1]).all() and rel <= MESH_LOGITS_TOL):
+                raise AssertionError(f"{arch}: mesh prefill logits {rel} of max {scale}")
+            del params, dparams, logits
+            record["logits_vs_meshless"] = {"dtype": "float32", "batch": MESH_CHECK_B,
+                                            "prompt": MESH_CHECK_S, "max_rel_err": rel,
+                                            "tol": MESH_LOGITS_TOL}
+            record["want_launches"] = want
+            records.append(record)
+        with open(out, "w") as f:
+            json.dump(records, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serving(root: str) -> tuple[list, dict]:
+    """`mesh_serving_child` in a spawned process (its NCCL group stays out of
+    this one); its failure fails this phase. → (records, launches)."""
+    import multiprocessing
+
+    out = os.path.join(root, "mesh_serving.json")
+    proc = multiprocessing.get_context("spawn").Process(target=mesh_serving_child,
+                                                        args=(root, out))
+    proc.start()
+    proc.join(MESH_CHILD_TIMEOUT_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(10)
+        raise AssertionError(f"mesh_serving's child still ran after {MESH_CHILD_TIMEOUT_S} s")
+    if proc.exitcode != 0:
+        raise AssertionError(f"mesh_serving's child exited with {proc.exitcode}")
+    with open(out) as f:
+        records = json.load(f)
+    launches = {}
+    for r in records:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return records, launches
+
+
+def step_costs_phase(serve_rec: dict, ssm_rec: dict) -> dict:
+    """``launch.costs.step_costs`` of the serving phases' steps on meta
+    tensors (no device time): flops, bytes and ``roofline_terms(chips=1)``
+    of granite's bulk prefill and one decode step and mamba2's, beside the
+    p50s those phases measured in this call, and their ratio: the measured
+    time's share of the step's bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import costs as C
+    from repro_torch.launch.steps import make_bulk_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+
+    steps = []
+    for rec, (arch, B, S, new) in ((serve_rec, (SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW)),
+                                   (ssm_rec, (SSM_ARCH, SSM_B, SSM_S, SSM_NEW))):
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params = model.abstract()
+        tokens = torch.empty((B, S), dtype=torch.int32, device="meta")
+        for kind, measured_ms in (("bulk_prefill", rec["prefill_ms_p50"]),
+                                  ("decode_step", rec["decode_ms_p50_steady"])):
+            cache = model.init_cache(B, S + new, device="meta")
+            if kind == "bulk_prefill":
+                sc, _ = C.step_costs(make_bulk_prefill_step(cfg), params, tokens, cache)
+            else:
+                sc, _ = C.step_costs(make_serve_step(cfg), params, tokens[:, 0], cache, S)
+            terms = C.roofline_terms(total_flops=sc.flops, total_bytes=sc.bytes,
+                                     coll_bytes=0.0, chips=1)
+            bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+            steps.append({"arch": arch, "n_layers": cfg.n_layers, "step": kind, "batch": B,
+                          "tokens": S if kind == "bulk_prefill" else 1, "ring": S + new,
+                          "flops": sc.flops, "bytes": sc.bytes, **terms, "bound_ms": bound_ms,
+                          "measured_p50_ms": measured_ms,
+                          "roofline_share": bound_ms / measured_ms if measured_ms else None})
+    return {"peaks": {"bf16_flops_per_s": C.PEAK_FLOPS_BF16, "hbm_bytes_per_s": C.HBM_BW,
+                      "nvlink_bytes_per_s": C.NVLINK_BW, "source": "H100 SXM5 datasheet, 700 W"},
+            "steps": steps}
+
+
+def dryrun_start(root: str):
+    """Run DRYRUN's combinations one after another in a background thread, on
+    the CPU (no card visible), each a ``python -m repro_torch.launch.dryrun``
+    process capped at DRYRUN_TIMEOUT_S. → (thread, results list)."""
+    import threading
+
+    results: list = []
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+
+    def run():
+        for arch, shape in DRYRUN:
+            out = os.path.join(root, f"dryrun_{arch}_{shape}.jsonl")
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                       "--arch", arch, "--shape", shape, "--out", out],
+                                      env=env, capture_output=True, text=True,
+                                      timeout=DRYRUN_TIMEOUT_S)
+                rc, tail = proc.returncode, proc.stderr[-2000:]
+            except subprocess.TimeoutExpired:
+                rc, tail = None, f"cut at {DRYRUN_TIMEOUT_S} s"
+            recs = []
+            if os.path.exists(out):
+                with open(out) as f:
+                    recs = [json.loads(line) for line in f]
+            results.append({"arch": arch, "shape": shape, "rc": rc,
+                            "wall_s": time.perf_counter() - t0, "records": recs,
+                            "stderr_tail": tail if rc else ""})
+
+    thread = threading.Thread(target=run, name="dryrun", daemon=True)
+    thread.start()
+    return thread, results
+
+
+def dryrun_join(thread, results: list) -> dict:
+    """Wait for `dryrun_start`'s runs; every combination must exit 0 with ok
+    records."""
+    thread.join(len(DRYRUN) * (DRYRUN_TIMEOUT_S + 30))
+    if thread.is_alive() or len(results) != len(DRYRUN):
+        raise AssertionError(f"the dry run did not finish: {len(results)} of {len(DRYRUN)}")
+    for r in results:
+        if r["rc"] != 0 or not r["records"] or not all(rec["ok"] for rec in r["records"]):
+            raise AssertionError(f"dry run {r['arch']} {r['shape']} failed: rc {r['rc']}\n"
+                                 f"{r['stderr_tail']}")
+    return {"mesh": "16x16 (fake process group, one CPU process)", "runs": results}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2562,6 +2832,7 @@ def main() -> None:
         raise AssertionError(f"serving launched {serving_launches}, want one flash_attention per "
                              f"layer per prefill and one decode_attention per layer per token: {want}")
     emit("serving", **record)
+    serve_record = record
     for name in serving_launches:
         launches[name] = fs_launches[name] + serving_launches[name]
     profiles = {"flash_attention": record["profile"]["prefill"],
@@ -2577,8 +2848,14 @@ def main() -> None:
         raise AssertionError(f"ssd_scan launched {ssm_launches['ssd_scan']} times for "
                              f"{record['batches']} prefills of {record['n_layers']} layers")
     emit("serving_ssm", **record)
+    ssm_record = record
     launches.update(ssm_launches)
     profiles["ssd_scan"] = record["profile"]["prefill"]
+
+    # the dry run is CPU work on fake tensors, one core: it runs beside the zoo
+    # (the longest phase after the main paths, whose host times it would perturb)
+    work = tempfile.mkdtemp(prefix="repro_torch_launch_")
+    dryrun = dryrun_start(work)
 
     # -- 22. serving_zoo: MoE, RG-LRU and MLA decoders through the same path ----
     attn_kernels = {"flash_attention": flash_kernel, "decode_attention": dec_kernel}
@@ -2593,6 +2870,22 @@ def main() -> None:
         emit(phase, nvidia_smi=smi, **record)
         for name in modal_launches:
             launches[name] += modal_launches[name]
+
+    # -- 25. serving_grok: grok-1's softcap on the card (plain capped attention)
+    emit("serving_grok", nvidia_smi=smi, **serving_grok(dev, attn_kernels))
+
+    # -- 26. mesh_serving: api.serve(mesh=) on a world-1 NCCL mesh, in a child
+    mesh_records, mesh_launches = mesh_serving(work)
+    emit("mesh_serving", nvidia_smi=smi, models=mesh_records)
+    for name, n in mesh_launches.items():
+        launches[name] += n
+
+    # -- 27. step_costs: each served step's flops and bytes beside its p50
+    emit("step_costs", nvidia_smi=smi, **step_costs_phase(serve_record, ssm_record))
+
+    # -- 28. dryrun: python -m repro_torch.launch.dryrun on the fake 16x16 mesh
+    emit("dryrun", **dryrun_join(*dryrun))
+    shutil.rmtree(work, ignore_errors=True)
     emit("timer_check", **timer_check(timings, profiles))
 
     # -- summary ----------------------------------------------------------------

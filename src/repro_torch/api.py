@@ -20,7 +20,7 @@ URI the grammar accepts — the port of ``repro.api.connect``.
     ============  =====================================================
 
 ``serve(store, arch)`` joins a store read-only as a serving node (the port of
-``repro.api.serve``, without ``mesh=``).
+``repro.api.serve``); ``mesh=`` places its weights on a ``DeviceMesh``.
 
 **Transport pipeline specs** (``transport=``), a policy stage plus an
 optional envelope, ``|``-chained: ``"delta(chain=4)|zstd"``,
@@ -108,6 +108,7 @@ def serve(
     reduced: bool = False,
     poll_interval: float = 0.25,
     telemetry: "Telemetry | bool | None" = None,
+    mesh=None,
     start: bool = True,
     wait: float | None = None,
     device: Any = "cuda",
@@ -116,7 +117,9 @@ def serve(
     """Join a store read-only as a serving node.
 
     ``store`` is a store instance or a ``connect()``-able URI; ``arch`` an
-    arch name from ``repro_torch.configs`` or a full ``ModelConfig``. With
+    arch name from ``repro_torch.configs`` or a full ``ModelConfig``;
+    ``mesh`` an optional ``torch.distributed`` ``DeviceMesh`` (one node per
+    rank; see ``ServingNode``). With
     ``start=True`` (default) the watcher thread is already running on
     return; ``wait`` additionally blocks up to that many seconds for the
     first weight set to go live. Returns the :class:`ServingNode`.
@@ -126,7 +129,8 @@ def serve(
     if isinstance(store, str):
         store = connect(store)
     node = ServingNode(store, arch, node_id=node_id, reduced=reduced,
-                       poll_interval=poll_interval, telemetry=telemetry, device=device,
+                       poll_interval=poll_interval, telemetry=telemetry, mesh=mesh,
+                       device=device,
                        **node_kwargs)
     if start:
         node.start()

@@ -5,7 +5,7 @@ from .synthetic import (
     make_synthetic_mnist,
     make_synthetic_wikitext,
 )
-from .pipeline import batch_iterator, lm_batch_iterator
+from .pipeline import batch_iterator, lm_batch_iterator, shard_batch
 
 __all__ = [
     "SyntheticImageDataset",
@@ -15,4 +15,5 @@ __all__ = [
     "make_synthetic_wikitext",
     "batch_iterator",
     "lm_batch_iterator",
+    "shard_batch",
 ]

@@ -1,11 +1,17 @@
 """Batching pipeline: host-side numpy batches, identical to ``repro``'s for
-the same seeds (``shard_batch``, the multi-device placement, comes with the
-launch slice)."""
+the same seeds, plus ``shard_batch`` to place a global batch on a
+``DeviceMesh``."""
 from __future__ import annotations
 
 from typing import Iterator
 
+import math
+
 import numpy as np
+import torch
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.core.tree import tree_map
 
 
 def batch_iterator(
@@ -48,3 +54,21 @@ def lm_batch_iterator(
         xs = np.stack([tokens[s : s + seq_len] for s in starts])
         ys = np.stack([tokens[s + 1 : s + seq_len + 1] for s in starts])
         yield {"tokens": xs.astype(np.int32), "labels": ys.astype(np.int32)}
+
+
+def shard_batch(batch: dict, mesh, *, batch_axes: tuple[str, ...] = ("data",)) -> dict:
+    """Place a host batch (numpy arrays or tensors, whole on every rank) on
+    ``mesh`` as DTensors, the batch dim sharded over ``batch_axes`` (pod
+    outer) and replicated when it does not divide. Each rank keeps its own
+    shard: nothing is sent."""
+    from repro_torch.launch.sharding import P, placements
+
+    size = math.prod(mesh.shape[mesh.mesh_dim_names.index(a)] for a in batch_axes)
+
+    def place(arr):
+        t = arr if isinstance(arr, torch.Tensor) else torch.as_tensor(np.asarray(arr))
+        spec = P(batch_axes) if t.shape[0] % size == 0 else P()
+        return distribute_tensor(t, mesh, placements(spec, mesh.mesh_dim_names),
+                                 src_data_rank=None)
+
+    return tree_map(place, batch)

@@ -7,11 +7,15 @@ Each kernel subpackage keeps the reference's three-file layout:
 
 A CPU tensor goes through the plain version. A CUDA tensor goes through the
 kernel, or raises: there is no fallback from the card to a library call.
-Kernels are compiled from source at first use (``_build.py``).
+Kernels are compiled from source at first use (``_build.py``). A DTensor
+never reaches an op: on a mesh the model calls each op through ``local_map``
+on the local shard, and an op handed a DTensor raises (``local_only``) rather
+than read a pointer or fall back.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def on_cuda() -> bool:
@@ -28,3 +32,10 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but no CUDA device is available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def local_only(op: str, *tensors: torch.Tensor) -> None:
+    """Raise if a DTensor reached kernel op ``op`` outside ``local_map``."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{op} takes local tensors; on a mesh call it through local_map "
+                        "(repro_torch.models.sharded.on_local_shards)")

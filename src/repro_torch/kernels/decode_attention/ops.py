@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import local_only
+
 from . import kernel
 from .ref import decode_attention_ref
 
@@ -16,6 +18,7 @@ from .ref import decode_attention_ref
 def decode_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """qg: (B,1,KV,G,hd) (model layout) → (B,1,KV,G,hd)."""
+    local_only("decode_attention", qg, k, v, valid)
     q = qg[:, 0]
     if q.is_cuda:
         out = kernel.decode_attention(q.contiguous(), k, v, valid)

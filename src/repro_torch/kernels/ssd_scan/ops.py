@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import local_only
+
 from . import kernel
 from .ref import ssd_chunked
 
@@ -23,6 +25,7 @@ def ssd(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *
     (B,H,P,N) f32 or None → (y (B,S,H,P), final_state (B,H,P,N) f32). With
     ``state_out`` the final state is written into it (it may be
     ``initial_state`` itself: a decode cache updated in place)."""
+    local_only("ssd_scan", x, dA, Bm, Cm, initial_state, state_out)
     if x.is_cuda:
         return kernel.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=initial_state,
                           state_out=state_out)

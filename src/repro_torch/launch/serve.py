@@ -4,7 +4,10 @@ the port of ``repro.launch.serve``.
     python -m repro_torch.launch.serve --arch mamba2-130m --reduced --batch 4 --new-tokens 16
 
 Runs on the card unless ``--device cpu`` is given. An enc-dec (``--arch
-seamless-m4t-medium``) is fed 64 stub audio frames per prompt.
+seamless-m4t-medium``) is fed 64 stub audio frames per prompt. ``serve_batch``
+also takes DTensor weights (placed on a ``DeviceMesh`` by
+``launch.sharding``): the prompts are then sharded with ``shard_batch``, the
+cache placed with ``serve_cache_shardings``, and the tokens come back whole.
 """
 from __future__ import annotations
 
@@ -15,9 +18,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.sharding import distribute, serve_cache_shardings
 from repro_torch.launch.steps import make_bulk_prefill_step, make_serve_step
 from repro_torch.models import build_model
 from repro_torch.models.frontends import stub_audio_frames
+from repro_torch.models.sharded import is_dtensor, on_mesh, serving_mode
 
 
 def _on(params, x, dtype=None) -> torch.Tensor:
@@ -29,9 +36,25 @@ def _on(params, x, dtype=None) -> torch.Tensor:
 
 def _init_cache(cfg, model, params, B: int, capacity: int, frames):
     if cfg.is_encdec:
-        with torch.inference_mode():
+        with serving_mode(params):
             return model.init_cache(params, _on(params, frames), capacity=capacity)
-    return model.init_cache(B, capacity=capacity, device=params["embed"]["table"].device)
+    cache = model.init_cache(B, capacity=capacity, device=params["embed"]["table"].device)
+    if on_mesh(params):
+        cache = distribute(cache, serve_cache_shardings(cache, params["embed"]["table"].device_mesh))
+    return cache
+
+
+def _prompts_on(params, prompts) -> torch.Tensor:
+    """The (B, S) prompts on the parameters' device, batch-sharded on a mesh."""
+    prompts = _on(params, prompts, torch.int32)
+    if on_mesh(params):
+        mesh = params["embed"]["table"].device_mesh
+        prompts = shard_batch({"t": prompts}, mesh, batch_axes=data_axes(mesh))["t"]
+    return prompts
+
+
+def _whole(tokens: torch.Tensor) -> torch.Tensor:
+    return tokens.full_tensor() if is_dtensor(tokens) else tokens
 
 
 def serve_batch(cfg, params, prompts, *, new_tokens: int, frames=None,
@@ -45,7 +68,7 @@ def serve_batch(cfg, params, prompts, *, new_tokens: int, frames=None,
     into its cache; a VLM's ``embeds`` (B, P, D) prefix takes positions
     0…P−1, so decode positions start past it."""
     model = build_model(cfg)
-    prompts = _on(params, prompts, torch.int32)
+    prompts = _prompts_on(params, prompts)
     B, S = prompts.shape
     n_prefix = 0 if embeds is None else embeds.shape[1]
     cache = _init_cache(cfg, model, params, B, n_prefix + S + new_tokens, frames)
@@ -56,7 +79,7 @@ def serve_batch(cfg, params, prompts, *, new_tokens: int, frames=None,
     for t in range(1, new_tokens):
         tok, cache = serve_step(params, tok, cache, n_prefix + S - 1 + t)
         out.append(tok)
-    return torch.stack(out, dim=1)
+    return _whole(torch.stack(out, dim=1))
 
 
 def serve_batch_loop(cfg, params, prompts, *, new_tokens: int, frames=None) -> torch.Tensor:
@@ -69,7 +92,7 @@ def serve_batch_loop(cfg, params, prompts, *, new_tokens: int, frames=None) -> t
     overflow, as the reference's does, where each decode step keeps every
     choice.)"""
     model = build_model(cfg)
-    prompts = _on(params, prompts, torch.int32)
+    prompts = _prompts_on(params, prompts)
     B, S = prompts.shape
     cache = _init_cache(cfg, model, params, B, S + new_tokens, frames)
     serve_step = make_serve_step(cfg)
@@ -80,7 +103,7 @@ def serve_batch_loop(cfg, params, prompts, *, new_tokens: int, frames=None) -> t
     for t in range(new_tokens):
         tok, cache = serve_step(params, tok, cache, S - 1 + t)
         out.append(tok)
-    return torch.stack(out, dim=1)
+    return _whole(torch.stack(out, dim=1))
 
 
 def main(argv=None):

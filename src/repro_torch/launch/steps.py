@@ -3,11 +3,13 @@
 ``make_prefill_step`` probe, and the serving steps ``make_bulk_prefill_step``
 and ``make_serve_step``.
 
-Plain functions on tensors. The train step updates the parameter and moment
-tensors in place (and returns them); its forward takes the plain attention
-and SSD paths, which autograd differentiates. The serving steps run under
-``torch.inference_mode()`` through the forward kernels; the caches they take
-are updated in place (and returned, as the reference's are).
+Plain functions on tensors, or on DTensors placed on a mesh (then under
+``implicit_replication``, ``models.sharded``). The train step updates the
+parameter and moment tensors in place (and returns them); its forward takes
+the plain attention and SSD paths, which autograd differentiates. The serving
+steps run under ``torch.inference_mode()`` (``no_grad`` on a mesh) through
+the forward kernels; the caches they take are updated in place (and
+returned, as the reference's are).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.core.tree import tree_map
 from repro_torch.models import ModelConfig, build_model
+from repro_torch.models.sharded import mesh_mode, serving_mode, split_dim, unshard
 from repro_torch.optim import Optimizer, adafactor, adamw, apply_updates
 from repro_torch.training.trainer import value_and_grad
 
@@ -46,10 +49,14 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
         return model.loss(params, batch, remat=remat)
 
     def train_step(params, opt_state, batch):
+        with mesh_mode(params):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         else:
-            micro = {k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
+            micro = {k: split_dim(v, 0, (microbatches, v.shape[0] // microbatches))
                      for k, v in batch.items()}
             grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             losses, metricses = [], []
@@ -69,7 +76,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
 
 
 def _greedy(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
-    return logits[:, : cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+    """Argmax over the valid vocab (on a mesh, gathered first: DTensor's
+    argmax over a sharded dim needs the rank's offset on the host)."""
+    return unshard(logits, -1)[:, : cfg.vocab_size].argmax(dim=-1).to(torch.int32)
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
@@ -78,13 +87,13 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     the enc-dec's ``frames`` or a VLM's ``embeds``."""
     model = build_model(cfg)
 
-    @torch.inference_mode()
     def prefill_step(params, batch):
-        if cfg.is_encdec:
-            logits, _ = model.apply(params, batch["tokens"], batch["frames"])
-        else:
-            logits, _ = model.apply(params, batch["tokens"], batch.get("embeds"))
-        return _greedy(cfg, logits[:, -1]), logits[:, -1]
+        with serving_mode(params):
+            if cfg.is_encdec:
+                logits, _ = model.apply(params, batch["tokens"], batch["frames"])
+            else:
+                logits, _ = model.apply(params, batch["tokens"], batch.get("embeds"))
+            return _greedy(cfg, logits[:, -1]), logits[:, -1]
 
     return prefill_step
 
@@ -96,14 +105,15 @@ def make_bulk_prefill_step(cfg: ModelConfig, *, window_override: int | None = No
     its encoded memory."""
     model = build_model(cfg)
 
-    @torch.inference_mode()
     def bulk_prefill_step(params, tokens, cache, extra_embeds=None):
-        if cfg.is_encdec:
-            logits, cache = model.prefill(params, tokens, cache, window_override=window_override)
-        else:
-            logits, cache = model.prefill(params, tokens, cache, extra_embeds,
-                                          window_override=window_override)
-        return _greedy(cfg, logits), cache
+        with serving_mode(params):
+            if cfg.is_encdec:
+                logits, cache = model.prefill(params, tokens, cache,
+                                              window_override=window_override)
+            else:
+                logits, cache = model.prefill(params, tokens, cache, extra_embeds,
+                                              window_override=window_override)
+            return _greedy(cfg, logits), cache
 
     return bulk_prefill_step
 
@@ -111,10 +121,10 @@ def make_bulk_prefill_step(cfg: ModelConfig, *, window_override: int | None = No
 def make_serve_step(cfg: ModelConfig, *, window_override: int | None = None) -> Callable:
     model = build_model(cfg)
 
-    @torch.inference_mode()
     def serve_step(params, token, cache, pos):
-        logits, cache = model.decode_step(params, token, cache, pos,
-                                          window_override=window_override)
-        return _greedy(cfg, logits), cache
+        with serving_mode(params):
+            logits, cache = model.decode_step(params, token, cache, pos,
+                                              window_override=window_override)
+            return _greedy(cfg, logits), cache
 
     return serve_step

@@ -13,11 +13,13 @@ softmax ``_sdpa`` or, above ``CHUNKED_THRESHOLD``, ``chunked_sdpa``, which
 recomputes each query block in the backward (``torch.utils.checkpoint`` where
 the reference has ``jax.checkpoint``). The kernels are forward-only. Serving
 turns it on: on CUDA tensors bulk prefill runs the ``flash_attention`` op and
-decode the ``decode_attention`` op, the port's hand-written kernels. Neither
-TPU kernel has a logit softcap, so serving a config with one raises
-``NotImplementedError`` on the card; on the CPU it takes the reference's
-masked softmax. CPU tensors take the ops' plain versions, which compute the
-reference's ``_sdpa``.
+decode the ``decode_attention`` op, the port's hand-written kernels. CPU
+tensors take the ops' plain versions, which compute the reference's
+``_sdpa``. On a mesh (DTensors) each op runs through ``local_map`` on each
+rank's KV heads (``models.sharded``). Neither TPU kernel has a logit
+softcap, and the reference never sends a capped config to one: a nonzero
+``attn_logit_softcap`` (grok-1) takes ``_sdpa``/``chunked_sdpa`` with the cap
+on every device, as MLA does.
 
 Unlike the reference's pure functions, the cache is updated *in place* (and
 returned): a cache is a few GB at serving's batch sizes, and a functional
@@ -43,15 +45,9 @@ from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 from .common import ModelConfig, apply_rope, dense_apply, dense_init, rmsnorm_apply, rmsnorm_init
+from .sharded import fsdp_gather, merge_dims, on_local_shards, replicated, split_dim, write_at
 
 NEG_INF = -1e30
-
-
-def _no_softcap_on_cuda(t: torch.Tensor, cfg: ModelConfig) -> None:
-    if t.is_cuda:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_logit_softcap={cfg.attn_logit_softcap} has no CUDA kernel "
-            "(neither TPU kernel has a softcap; ROADMAP Queue 2)")
 
 
 def _maybe_softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -165,9 +161,9 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
     q_flat = dense_apply(p["wq"], x)
     if "lora_a" in p:
         q_flat = q_flat + dense_apply(p["lora_b"], dense_apply(p["lora_a"], x))
-    q = q_flat.reshape(B, S, cfg.n_heads, hd)
-    k = dense_apply(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense_apply(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_dim(q_flat, -1, (cfg.n_heads, hd))
+    k = split_dim(dense_apply(p["wk"], x), -1, (cfg.n_kv_heads, hd))
+    v = split_dim(dense_apply(p["wv"], x), -1, (cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
@@ -176,18 +172,26 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
     return q, k, v
 
 
-def _full_causal_out(cfg: ModelConfig, qg, k, v, *, window: int, use_flash: bool):
-    """Full-sequence causal dispatch shared by attn_full / attn_prefill."""
+def _plain_causal(qg, k, v, *, window: int, softcap: float, qblock: int,
+                  probs_bf16: bool) -> torch.Tensor:
+    """Plain causal attention: ``_sdpa``, or ``chunked_sdpa`` above
+    ``CHUNKED_THRESHOLD``."""
     S = qg.shape[1]
-    if use_flash:
-        if cfg.attn_logit_softcap == 0:
-            return flash_ops.flash_attention(qg, k, v, window=window)
-        _no_softcap_on_cuda(qg, cfg)
     if S > CHUNKED_THRESHOLD:
-        return chunked_sdpa(qg, k, v, causal=True, window=window,
-                            softcap=cfg.attn_logit_softcap, qblock=cfg.attn_qblock,
-                            probs_bf16=cfg.attn_probs_bf16)
-    return _sdpa(qg, k, v, causal_mask(S, window, device=qg.device), cfg.attn_logit_softcap)
+        return chunked_sdpa(qg, k, v, causal=True, window=window, softcap=softcap,
+                            qblock=qblock, probs_bf16=probs_bf16)
+    return _sdpa(qg, k, v, causal_mask(S, window, device=qg.device), softcap)
+
+
+def _full_causal_out(cfg: ModelConfig, qg, k, v, *, window: int, use_flash: bool):
+    """Full-sequence causal dispatch shared by attn_full / attn_prefill; on a
+    mesh, each rank attends over its own batch rows and KV heads."""
+    if use_flash and cfg.attn_logit_softcap == 0:
+        return on_local_shards(flash_ops.flash_attention, (qg, k, v), heads=(2, 2, 2),
+                               window=window)
+    return on_local_shards(_plain_causal, (qg, k, v), heads=(2, 2, 2), window=window,
+                           softcap=cfg.attn_logit_softcap, qblock=cfg.attn_qblock,
+                           probs_bf16=cfg.attn_probs_bf16)
 
 
 def attn_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int | None = None,
@@ -198,9 +202,9 @@ def attn_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int | None 
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim_)
+    qg = split_dim(q, 2, (cfg.n_kv_heads, G))
     out = _full_causal_out(cfg, qg, k, v, window=window, use_flash=use_flash)
-    return dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim_))
+    return dense_apply(p["wo"], merge_dims(out, 2))
 
 
 def fill_ring(cache: dict, entries: dict, seq: int) -> dict:
@@ -214,8 +218,8 @@ def fill_ring(cache: dict, entries: dict, seq: int) -> dict:
     pos = torch.arange(seq - keep, seq, dtype=torch.int32, device=slot_pos.device)
     slots = (pos % capacity).long()
     for name, val in entries.items():
-        cache[name][:, slots] = val[:, seq - keep:].to(cache[name].dtype)
-    slot_pos[slots] = pos
+        write_at(cache[name], 1, slots, val[:, seq - keep:].to(cache[name].dtype))
+    write_at(slot_pos, 0, slots, pos)
     return cache
 
 
@@ -233,6 +237,12 @@ def init_attn_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *,
     }
 
 
+def _sdpa_valid(qg, k, v, valid, *, softcap: float) -> torch.Tensor:
+    """``_sdpa`` of one decode query against a ring whose (C,) ``valid`` mask
+    the batch shares."""
+    return _sdpa(qg, k, v, valid[None, None, :], softcap)
+
+
 def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int, *,
                 window: int | None = None) -> tuple[torch.Tensor, dict]:
     """One-token decode. x: (B,1,D); pos: the global position (a host int).
@@ -245,19 +255,20 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: in
     q, k, v = _project_qkv(p, cfg, x, positions)
     slot_pos = cache["slot_pos"]
     slot = pos % slot_pos.shape[0]
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    slot_pos[slot] = pos
+    write_at(cache["k"], 1, slice(slot, slot + 1), k)
+    write_at(cache["v"], 1, slice(slot, slot + 1), v)
+    write_at(slot_pos, 0, slot, pos)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window and window > 0:
         valid &= slot_pos > pos - window
     G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, 1, cfg.n_kv_heads, G, hd)
+    qg = split_dim(q, 2, (cfg.n_kv_heads, G))
     if cfg.attn_logit_softcap == 0:
-        out = dec_ops.decode_attention(qg, cache["k"], cache["v"], valid)
+        out = on_local_shards(dec_ops.decode_attention, (qg, cache["k"], cache["v"], valid),
+                              heads=(2, 2, 2, None))
     else:
-        _no_softcap_on_cuda(qg, cfg)
-        out = _sdpa(qg, cache["k"], cache["v"], valid[None, None, :], cfg.attn_logit_softcap)
+        out = on_local_shards(_sdpa_valid, (qg, cache["k"], cache["v"], valid),
+                              heads=(2, 2, 2, None), softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.n_heads * hd)
     return dense_apply(p["wo"], out), cache
 
@@ -275,7 +286,7 @@ def attn_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim_)
+    qg = split_dim(q, 2, (cfg.n_kv_heads, G))
     out = _full_causal_out(cfg, qg, k, v, window=window, use_flash=True)
     out = dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim_))
     return out, fill_ring(cache, {"k": k, "v": v}, S)
@@ -308,7 +319,7 @@ def _mla_q(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
     qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
     q_lat = rmsnorm_apply(p["q_a_norm"], dense_apply(p["wq_a"], x), cfg.norm_eps)
-    q = dense_apply(p["wq_b"], q_lat).reshape(B, S, cfg.n_heads, qk_dim)
+    q = split_dim(dense_apply(p["wq_b"], q_lat), -1, (cfg.n_heads, qk_dim))
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -322,11 +333,8 @@ def _mla_latent(p, cfg: ModelConfig, x, positions):
 
 def _mla_attend(cfg: ModelConfig, qg, k, v, window: int) -> torch.Tensor:
     """Plain causal attention for MLA's unified heads (never a kernel)."""
-    S = qg.shape[1]
-    if S > CHUNKED_THRESHOLD:
-        return chunked_sdpa(qg, k, v, causal=True, window=window or 0,
-                            qblock=cfg.attn_qblock, probs_bf16=cfg.attn_probs_bf16)
-    return _sdpa(qg, k, v, causal_mask(S, window, device=qg.device), 0.0)
+    return on_local_shards(_plain_causal, (qg, k, v), heads=(2, 2, 2), window=window or 0,
+                           softcap=0.0, qblock=cfg.attn_qblock, probs_bf16=cfg.attn_probs_bf16)
 
 
 def mla_full_absorbed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -341,7 +349,7 @@ def mla_full_absorbed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     q_nope, q_rope = _mla_q(p, cfg, x, positions)            # (B,S,H,dn), (B,S,H,dr)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)         # (B,S,R), (B,S,dr)
     H, R, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
-    wk_b = p["wk_b"]["w"].reshape(R, H, cfg.qk_nope_dim)
+    wk_b = split_dim(fsdp_gather(p["wk_b"]["w"]), -1, (H, cfg.qk_nope_dim))
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_b.to(q_nope.dtype))
     q_full = torch.cat([q_lat, q_rope], dim=-1)              # (B,S,H,R+dr)
     k_full = torch.cat([c_kv, k_rope], dim=-1)               # (B,S,R+dr)
@@ -352,10 +360,10 @@ def mla_full_absorbed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     # context in latent space: pad the latent "values" to key width
     v_lat = F.pad(c_kv, (0, dr))[:, :, None, :]
     ctx = _mla_attend(cfg, qg, k_full[:, :, None, :], v_lat, window)
-    ctx_lat = ctx.reshape(B, S, H, R + dr)[..., :R]
-    wv_b = p["wv_b"]["w"].reshape(R, H, cfg.v_head_dim)
+    ctx_lat = merge_dims(ctx, 2).reshape(B, S, H, R + dr)[..., :R]
+    wv_b = split_dim(fsdp_gather(p["wv_b"]["w"]), -1, (H, cfg.v_head_dim))
     out = torch.einsum("bshr,rhd->bshd", ctx_lat, wv_b.to(ctx_lat.dtype))
-    return dense_apply(p["wo"], out.reshape(B, S, H * cfg.v_head_dim))
+    return dense_apply(p["wo"], merge_dims(out, 2))
 
 
 def mla_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -368,8 +376,8 @@ def mla_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     H, dr = cfg.n_heads, cfg.qk_rope_dim
-    k_nope = dense_apply(p["wk_b"], c_kv).reshape(B, S, H, cfg.qk_nope_dim)
-    v = dense_apply(p["wv_b"], c_kv).reshape(B, S, H, cfg.v_head_dim)
+    k_nope = split_dim(dense_apply(p["wk_b"], c_kv), -1, (H, cfg.qk_nope_dim))
+    v = split_dim(dense_apply(p["wv_b"], c_kv), -1, (H, cfg.v_head_dim))
     # one head_dim of nope + rope; k_rope is shared across heads (MQA-style)
     q_full = torch.cat([q_nope, q_rope], dim=-1)                      # (B,S,H,dn+dr)
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
@@ -377,8 +385,8 @@ def mla_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     qk_dim = cfg.qk_nope_dim + dr
     vp = F.pad(v, (0, qk_dim - cfg.v_head_dim))
     out = _mla_attend(cfg, q_full.reshape(B, S, H, 1, qk_dim), k_full, vp, window)
-    out = out.reshape(B, S, H, qk_dim)[..., : cfg.v_head_dim]
-    return dense_apply(p["wo"], out.reshape(B, S, H * cfg.v_head_dim))
+    out = out[:, :, :, 0, : cfg.v_head_dim]
+    return dense_apply(p["wo"], merge_dims(out, 2))
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *,
@@ -391,6 +399,33 @@ def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *,
         "k_rope": torch.zeros((*lead, batch, capacity, cfg.qk_rope_dim), dtype=dt, device=device),
         "slot_pos": torch.full((*lead, capacity), -1, dtype=torch.int32, device=device),
     }
+
+
+def _mla_decode_attend(wk_b, wv_b, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, valid,
+                       absorb: bool) -> torch.Tensor:
+    """One decode query per head against the latent ring → (B,1,H,v_head_dim)
+    f32 context."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    ckv = c_kv.float()        # (B,C,R)
+    krope = k_rope.float()    # (B,C,r)
+    H, R = cfg.n_heads, cfg.kv_lora_rank
+    if absorb:
+        # fold W_uk into the query: per-head latent query (B,1,H,R)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(),
+                             wk_b.float().reshape(R, H, cfg.qk_nope_dim))
+        scores = torch.einsum("bshr,bcr->bhsc", q_lat, ckv)
+        scores = scores + torch.einsum("bshd,bcd->bhsc", q_rope.float(), krope)
+        scores = torch.where(valid[None, None, None], scores * scale, NEG_INF)
+        ctx_lat = torch.einsum("bhsc,bcr->bshr", torch.softmax(scores, dim=-1), ckv)
+        return torch.einsum("bshr,rhd->bshd", ctx_lat,
+                            wv_b.float().reshape(R, H, cfg.v_head_dim))
+    B, C = ckv.shape[:2]
+    k_nope = (c_kv @ wk_b).reshape(B, C, H, cfg.qk_nope_dim)
+    v = (c_kv @ wv_b).reshape(B, C, H, cfg.v_head_dim)
+    scores = torch.einsum("bshd,bchd->bhsc", q_nope.float(), k_nope.float())
+    scores = scores + torch.einsum("bshd,bcd->bhsc", q_rope.float(), krope)
+    scores = torch.where(valid[None, None, None], scores * scale, NEG_INF)
+    return torch.einsum("bhsc,bchd->bshd", torch.softmax(scores, dim=-1), v.float())
 
 
 def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int, *,
@@ -410,35 +445,17 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int
     c_kv_new, k_rope_new = _mla_latent(p, cfg, x, positions)
     slot_pos = cache["slot_pos"]
     slot = pos % slot_pos.shape[0]
-    cache["c_kv"][:, slot] = c_kv_new[:, 0]
-    cache["k_rope"][:, slot] = k_rope_new[:, 0]
-    slot_pos[slot] = pos
+    write_at(cache["c_kv"], 1, slice(slot, slot + 1), c_kv_new)
+    write_at(cache["k_rope"], 1, slice(slot, slot + 1), k_rope_new)
+    write_at(slot_pos, 0, slot, pos)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window and window > 0:
         valid &= slot_pos > pos - window
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-    ckv = cache["c_kv"].float()        # (B,C,R)
-    krope = cache["k_rope"].float()    # (B,C,r)
-    H, R = cfg.n_heads, cfg.kv_lora_rank
-    if absorb:
-        wk_b = p["wk_b"]["w"].float().reshape(R, H, cfg.qk_nope_dim)
-        # fold W_uk into the query: per-head latent query (B,1,H,R)
-        q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_b)
-        scores = torch.einsum("bshr,bcr->bhsc", q_lat, ckv)
-        scores = scores + torch.einsum("bshd,bcd->bhsc", q_rope.float(), krope)
-        scores = torch.where(valid[None, None, None], scores * scale, NEG_INF)
-        ctx_lat = torch.einsum("bhsc,bcr->bshr", torch.softmax(scores, dim=-1), ckv)
-        wv_b = p["wv_b"]["w"].float().reshape(R, H, cfg.v_head_dim)
-        out = torch.einsum("bshr,rhd->bshd", ctx_lat, wv_b)
-    else:
-        C = ckv.shape[1]
-        k_nope = dense_apply(p["wk_b"], cache["c_kv"]).reshape(B, C, H, cfg.qk_nope_dim)
-        v = dense_apply(p["wv_b"], cache["c_kv"]).reshape(B, C, H, cfg.v_head_dim)
-        scores = torch.einsum("bshd,bchd->bhsc", q_nope.float(), k_nope.float())
-        scores = scores + torch.einsum("bshd,bcd->bhsc", q_rope.float(), krope)
-        scores = torch.where(valid[None, None, None], scores * scale, NEG_INF)
-        out = torch.einsum("bhsc,bchd->bshd", torch.softmax(scores, dim=-1), v.float())
-    out = out.to(x.dtype).reshape(B, 1, H * cfg.v_head_dim)
+    # on a mesh, plain code on whole tensors: DTensor has no rule for these
+    # products over heads sharded on "model"
+    out = replicated(_mla_decode_attend)(p["wk_b"]["w"], p["wv_b"]["w"], cfg, q_nope, q_rope,
+                                         cache["c_kv"], cache["k_rope"], valid, absorb)
+    out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
     return dense_apply(p["wo"], out), cache
 
 

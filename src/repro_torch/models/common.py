@@ -21,6 +21,7 @@ from repro_torch.core.tree import (LeafSpec, PyTree, as_tensor, tree_flatten_wit
                                    tree_leaves, tree_unflatten)
 from repro_torch.core.tree import torch_dtype as _torch_dtype
 from repro_torch.kernels import resolve_device
+from repro_torch.models.sharded import fsdp_gather, reduce_partial, unshard
 
 
 @dataclass(frozen=True)
@@ -200,7 +201,7 @@ def dense_init(gen, d_in: int, d_out: int, dtype, scale: float | None = None,
 
 
 def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    return reduce_partial(x @ fsdp_gather(p["w"]))
 
 
 def rmsnorm_init(gen, d: int, dtype, lead: tuple = ()) -> dict:
@@ -208,7 +209,7 @@ def rmsnorm_init(gen, d: int, dtype, lead: tuple = ()) -> dict:
 
 
 def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
+    x32 = unshard(x, -1).float()  # on a mesh, the normalized dim whole
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * p["scale"].float()
     return out.to(x.dtype)
@@ -219,7 +220,7 @@ def embedding_init(gen, vocab: int, d: int, dtype) -> dict:
 
 
 def embedding_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["table"])
+    return reduce_partial(F.embedding(tokens, fsdp_gather(p["table"])))
 
 
 def scaled_embedding(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -231,7 +232,7 @@ def scaled_embedding(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.T
 
 def unembed_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits in f32 (loss stability)."""
-    return x.float() @ p["table"].float().t()
+    return x.float() @ fsdp_gather(p["table"]).float().t()
 
 
 # -- rotary ------------------------------------------------------------------
@@ -283,8 +284,10 @@ def mlp_apply(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           valid_vocab: int | None = None) -> torch.Tensor:
-    """Per-token CE in f32; padded vocab tail masked out."""
-    logits = logits.float()
+    """Per-token CE in f32; padded vocab tail masked out. On a mesh the
+    vocab dim is gathered first (DTensor's masked gather over a sharded dim
+    fails)."""
+    logits = unshard(logits, -1).float()
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         mask = torch.arange(logits.shape[-1], device=logits.device) < valid_vocab
         logits = torch.where(mask, logits, -1e30)
@@ -294,7 +297,7 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def token_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return (logits.argmax(dim=-1) == labels).float().mean()
+    return (unshard(logits, -1).argmax(dim=-1) == labels).float().mean()
 
 
 # -- parameters from the reference --------------------------------------------

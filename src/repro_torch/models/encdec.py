@@ -32,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
+from .sharded import merge_dims, on_local_shards, split_dim
 from .common import (
     ModelConfig,
     dense_apply,
@@ -63,8 +64,8 @@ def _init_cross_attn(gen, cfg: ModelConfig, lead: tuple = ()) -> dict:
 def _cross_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor):
     B, T, _ = memory.shape
     hd = cfg.head_dim_
-    k = dense_apply(p["wk"], memory).reshape(B, T, cfg.n_kv_heads, hd)
-    v = dense_apply(p["wv"], memory).reshape(B, T, cfg.n_kv_heads, hd)
+    k = split_dim(dense_apply(p["wk"], memory), -1, (cfg.n_kv_heads, hd))
+    v = split_dim(dense_apply(p["wv"], memory), -1, (cfg.n_kv_heads, hd))
     return k, v
 
 
@@ -72,27 +73,35 @@ def _cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """Every query position against the whole memory: scores and softmax in
     f32, the context cast back to the activations' dtype."""
-    B, S, _ = x.shape
     hd = cfg.head_dim_
     G = cfg.n_heads // cfg.n_kv_heads
-    qg = dense_apply(p["wq"], x).reshape(B, S, cfg.n_kv_heads, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) / math.sqrt(hd)
+    qg = split_dim(dense_apply(p["wq"], x), -1, (cfg.n_kv_heads, G, hd))
+    out = on_local_shards(_cross_softmax, (qg, k, v), heads=(2, 2, 2))
+    return dense_apply(p["wo"], merge_dims(out, 2))
+
+
+def _cross_softmax(qg, k, v) -> torch.Tensor:
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) / math.sqrt(qg.shape[-1])
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float()).to(x.dtype)
-    return dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * hd))
+    return torch.einsum("bkgst,btkh->bskgh", probs, v.float()).to(qg.dtype)
+
+
+def _bidirectional(qg, k, v) -> torch.Tensor:
+    """The reference's ``_sdpa`` with an all-true mask."""
+    T = k.shape[1]
+    return attn_mod._sdpa(qg, k, v, torch.ones((T, T), dtype=torch.bool, device=qg.device), 0.0)
 
 
 def _enc_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Pre-norm bidirectional self-attention (rope at positions 0…T−1) +
     pre-norm MLP."""
-    B, T, _ = x.shape
+    T = x.shape[1]
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     positions = torch.arange(T, device=x.device)[None, :]
     q, k, v = attn_mod._project_qkv(p["attn"], cfg, h, positions)
-    qg = q.reshape(B, T, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim_)
-    mask = torch.ones((T, T), dtype=torch.bool, device=x.device)
-    out = attn_mod._sdpa(qg, k, v, mask, 0.0).reshape(B, T, cfg.n_heads * cfg.head_dim_)
-    x = x + dense_apply(p["attn"]["wo"], out)
+    qg = split_dim(q, 2, (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads))
+    out = on_local_shards(_bidirectional, (qg, k, v), heads=(2, 2, 2))
+    x = x + dense_apply(p["attn"]["wo"], merge_dims(out, 2))
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h, cfg.activation)
 

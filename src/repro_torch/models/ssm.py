@@ -4,7 +4,8 @@ of ``repro.models.ssm``.
 Serving's bulk prefill ``mamba2_prefill`` runs the SSD chunked dual form
 through the ``ssd_scan`` op: on a CUDA tensor the hand-written kernel, on a
 CPU tensor the plain ``ssd_chunked`` (the reference calls ``ssd_chunked``
-directly; its TPU kernel computes the same function). ``mamba2_full``, the
+directly; its TPU kernel computes the same function); on a mesh it runs
+through ``local_map`` on each rank's heads. ``mamba2_full``, the
 training forward, calls the plain ``ssd_chunked`` on any device, as the
 reference does, so autograd differentiates it (the kernel is forward-only).
 The SSD core (``segsum``, ``ssd_chunked``,
@@ -26,6 +27,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import segsum, ssd_chunked, ssd_sequential
 
 from .common import ModelConfig, _full, _normal, dense_apply, dense_init, rmsnorm_apply, rmsnorm_init
+from .sharded import on_local_shards
 
 __all__ = ["segsum", "ssd_chunked", "ssd_sequential", "init_mamba2", "causal_conv1d",
            "mamba2_full", "init_ssm_cache", "mamba2_decode", "mamba2_prefill"]
@@ -108,10 +110,17 @@ def mamba2_full(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     z, xBC, dt_raw = _project_in(p, cfg, x)
     xBC = causal_conv1d(xBC, p["conv_w"], p["conv_b"])
     xh, xdt, dA, Bm, Cm = _ssd_inputs(p, cfg, xBC, dt_raw)
-    shape = (*Bm.shape[:2], xh.shape[2], Bm.shape[-1])
-    y, _ = ssd_chunked(xdt, dA, Bm[:, :, None].expand(shape), Cm[:, :, None].expand(shape),
-                       cfg.ssm_chunk)
+    y = on_local_shards(_ssd_plain, (xdt, dA, Bm, Cm), heads=(2, 2, None, None),
+                        chunk=cfg.ssm_chunk)
     return _gated_out(p, cfg, y, xh, z)
+
+
+def _ssd_plain(x, dA, Bm, Cm, *, chunk: int) -> torch.Tensor:
+    """The plain ``ssd_chunked`` from a zero state, B and C shared by every
+    head → y."""
+    shape = (*Bm.shape[:2], x.shape[2], Bm.shape[-1])
+    return ssd_chunked(x, dA, Bm[:, :, None].expand(shape), Cm[:, :, None].expand(shape),
+                       chunk)[0]
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=None, *,
@@ -150,6 +159,12 @@ def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return dense_apply(p["out_proj"], y), cache
 
 
+def _ssd_in_place(x, dA, Bm, Cm, state, *, chunk: int):
+    """The ``ssd_scan`` op seeded from ``state``, its final state written back
+    into ``state``."""
+    return ssd_ops.ssd(x, dA, Bm, Cm, chunk=chunk, initial_state=state, state_out=state)
+
+
 def mamba2_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
                    cache: dict) -> tuple[torch.Tensor, dict]:
     """``mamba2_full`` that also produces the decode cache — serving's bulk
@@ -162,7 +177,7 @@ def mamba2_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
     window = torch.cat([cache["conv"].to(xBC.dtype), xBC], dim=1)     # (B,K-1+S,C)
     conv_out = _conv_silu(window, p["conv_w"], p["conv_b"], S)
     xh, xdt, dA, Bm, Cm = _ssd_inputs(p, cfg, conv_out, dt_raw)
-    y, _ = ssd_ops.ssd(xdt, dA, Bm, Cm, chunk=cfg.ssm_chunk, initial_state=cache["ssm"],
-                       state_out=cache["ssm"])
+    y, _ = on_local_shards(_ssd_in_place, (xdt, dA, Bm, Cm, cache["ssm"]),
+                           heads=(2, 2, None, None, 1), out_like=(0, 4), chunk=cfg.ssm_chunk)
     cache["conv"].copy_(window[:, S:])
     return _gated_out(p, cfg, y, xh, z), cache

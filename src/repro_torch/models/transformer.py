@@ -24,6 +24,12 @@ in either package. Serving's ``prefill`` and ``decode_step`` run the kernels
 of GQA attention (``attn`` and ``moe_attn`` blocks) and of ``ssm`` blocks.
 ``remat=True`` recomputes each layer group in the backward
 (``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``).
+``remat_policy="dots"`` saves the outputs of ``aten.mm`` and ``aten.addmm``
+(the projections and MLPs: products with no batch dim) and recomputes the
+rest, ``bmm`` (the batched attention products) included — the counterpart of
+the reference's ``dots_with_no_batch_dims_saveable``, through
+``create_selective_checkpoint_contexts``; any other policy recomputes the
+whole group, as the reference's does.
 
 A VLM prefix (``extra_embeds``: stub patch embeddings, ``models.frontends``)
 is concatenated in front of the scaled token embeddings and occupies
@@ -32,8 +38,15 @@ Encoder-decoders are ``models.encdec.EncDecLM``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.kernels import resolve_device
 
@@ -41,6 +54,7 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
+from .sharded import replicated
 from .common import (
     ModelConfig,
     embedding_init,
@@ -55,6 +69,16 @@ from .common import (
     unembed_apply,
     unstack,
 )
+
+
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_save_dots = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 def _init_block(gen, cfg: ModelConfig, kind: str, lead: tuple = ()) -> dict:
@@ -98,7 +122,7 @@ def _ffn(p, cfg: ModelConfig, kind: str, x):
     for ``moe_attn`` → (x, aux)."""
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if kind == "moe_attn":
-        out, aux = moe_mod.moe_apply(p["moe"], cfg, h)
+        out, aux = replicated(moe_mod.moe_apply)(p["moe"], cfg, h)
         return x + out, aux
     return x + mlp_apply(p["mlp"], h, cfg.activation), None
 
@@ -243,17 +267,14 @@ class DecoderLM:
               remat: bool = False, use_flash: bool = False):
         """→ (logits (B,S_text,padded_vocab), aux_loss): with ``extra_embeds``
         (B,P,D) in front, only the S_text token positions produce logits."""
-        if remat and self.cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.cfg.remat_policy!r} is not ported; the port recomputes "
-                "whole layer groups ('full')")
+        context_fn = _save_dots if self.cfg.remat_policy == "dots" else noop_context_fn
         x = self._embed(params, tokens, extra_embeds)
         n_text = tokens.shape[1]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group in self._per_group(params["blocks"]):
             if remat and torch.is_grad_enabled():
                 x, aux = checkpoint(self._group_full, group, x, aux, window_override, use_flash,
-                                    use_reentrant=False)
+                                    use_reentrant=False, context_fn=context_fn)
             else:
                 x, aux = self._group_full(group, x, aux, window_override, use_flash)
         for i, kind in enumerate(self.tail):

@@ -23,6 +23,15 @@ per staging buffer orders its reuse after its copy. One leaf-sized copy would
 queue ahead of the decode steps and stall in-flight requests; small copies on
 a side stream interleave with them.
 
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``; one ``ServingNode``
+per rank, each fed the same prompts and deploying the same weights), a deploy
+unflattens the standby host buffer and places each leaf with
+``launch.sharding.param_shardings`` instead, as the reference does: the
+chunked path and the device double buffer are skipped (``buf=None``). The
+cache is placed with ``serve_cache_shardings`` (batch on the data axes, heads
+on "model"), prompts with ``shard_batch``, and the greedy tokens come back
+whole on every rank.
+
 Telemetry spans ``serve.prefill`` / ``serve.decode`` / ``serve.swap`` plus a
 ``serve`` SLO dict (swap-latency percentiles, staleness-in-rounds, token
 throughput) ride ``obs/`` blobs like every trainer's metrics do.
@@ -42,9 +51,13 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.tree import LeafSpec, torch_dtype, tree_unflatten
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.kernels import resolve_device
+from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.sharding import distribute, param_shardings, serve_cache_shardings
 from repro_torch.launch.steps import make_bulk_prefill_step, make_serve_step
 from repro_torch.models import ModelConfig, build_model
+from repro_torch.models.sharded import is_dtensor
 
 from .watcher import Deployment, StoreWatcher
 
@@ -66,6 +79,8 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
 
 def _sync(t: torch.Tensor) -> None:
     """Wait until the work that produces ``t`` is done (host clock spans)."""
+    if is_dtensor(t):
+        t = t.to_local()
     if t.is_cuda:
         torch.cuda.current_stream(t.device).synchronize()
 
@@ -78,7 +93,7 @@ class _Deployed:
     source: str
     counter: int
     deployed_at: float
-    buf: int           # device-buffer index
+    buf: int | None    # device-buffer index (None: a mesh tree)
 
 
 class _ChunkCopier:
@@ -138,6 +153,9 @@ class ServingNode:
         Seconds between store freshness sweeps on the watcher thread.
     telemetry:
         ``Telemetry`` instance, bool, or None (``REPRO_OBS`` env default).
+    mesh:
+        Optional ``DeviceMesh`` ("data", "model"): deployments are placed
+        with ``launch.sharding.param_shardings`` instead of on one device.
     window_override:
         Optional sliding-window override threaded to prefill/decode.
     device:
@@ -154,6 +172,7 @@ class ServingNode:
         reduced: bool = False,
         poll_interval: float = 0.25,
         telemetry: "Telemetry | bool | None" = None,
+        mesh=None,
         window_override: int | None = None,
         clock: Callable[[], float] = time.perf_counter,
         device: "str | torch.device" = "cuda",
@@ -180,8 +199,15 @@ class ServingNode:
         if self.telemetry.enabled and hasattr(store, "attach_telemetry"):
             store.attach_telemetry(self.telemetry)
 
-        self.spec = LeafSpec.of(self.model.abstract())
+        shapes = self.model.abstract()
+        self.spec = LeafSpec.of(shapes)
         self.watcher = StoreWatcher(store, spec=self.spec)
+        self.mesh = mesh
+        self._shardings = None
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device_type!r} but device={str(self.device)!r}")
+            self._shardings = param_shardings(shapes, mesh)
         self._prefill = make_bulk_prefill_step(cfg, window_override=window_override)
         self._serve_step = make_serve_step(cfg, window_override=window_override)
         self._window_override = window_override
@@ -284,11 +310,14 @@ class ServingNode:
                 np.copyto(buf, dep.flat)
             else:
                 self.spec.flatten_into(dep.params, buf)
-            tree = self._materialize_chunked(idx, buf)
+            if self._shardings is not None:
+                tree, buf_index = self._materialize_on_mesh(buf), None
+            else:
+                tree, buf_index = self._materialize_chunked(idx, buf), idx
             # publish: one reference flip; in-flight batches keep their
             # snapshot of the previous tree
             self._deployed = _Deployed(params=tree, source=dep.source, counter=dep.counter,
-                                       deployed_at=self._clock(), buf=idx)
+                                       deployed_at=self._clock(), buf=buf_index)
             self._standby ^= 1
         t1 = self._clock()
         with self._lock:
@@ -299,6 +328,17 @@ class ServingNode:
             del self._swap_log[:-_SLO_WINDOW]
         self.telemetry.count("serve.swaps")
         self._deployed_event.set()
+
+    def _materialize_on_mesh(self, buf: np.ndarray) -> Any:
+        """The standby host buffer as a tree of DTensors: each leaf copied to
+        the device whole, then cut to this rank's shard by its sharding."""
+        leaves = [torch.from_numpy(buf[o:o + n]).reshape(s).to(self.device, torch_dtype(d))
+                  for o, n, s, d in zip(self.spec.offsets, self.spec.sizes, self.spec.shapes,
+                                        self.spec.dtypes)]
+        tree = distribute(tree_unflatten(self.spec.treedef, leaves), self._shardings)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return tree
 
     def _materialize_chunked(self, idx: int, buf: np.ndarray) -> Any:
         """Write the standby host buffer into device leaf set ``idx`` in
@@ -356,7 +396,7 @@ class ServingNode:
         # start on it (any new snapshot points at the active buffer)
         with self._buf_cv:
             dep = self._deployed
-            if dep is not None:
+            if dep is not None and dep.buf is not None:
                 self._buf_refs[dep.buf] += 1
         if dep is None:
             raise RuntimeError(
@@ -365,9 +405,10 @@ class ServingNode:
         try:
             return self._generate_on(dep, prompts, new_tokens, on_token)
         finally:
-            with self._buf_cv:
-                self._buf_refs[dep.buf] -= 1
-                self._buf_cv.notify_all()
+            if dep.buf is not None:
+                with self._buf_cv:
+                    self._buf_refs[dep.buf] -= 1
+                    self._buf_cv.notify_all()
 
     def _generate_on(self, dep, prompts, new_tokens, on_token):
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
@@ -375,6 +416,10 @@ class ServingNode:
         cache = self.model.init_cache(B, capacity=S + new_tokens,
                                       window_override=self._window_override,
                                       device=self.device)
+        if self.mesh is not None:
+            prompts = shard_batch({"tokens": prompts}, self.mesh,
+                                  batch_axes=data_axes(self.mesh))["tokens"]
+            cache = distribute(cache, serve_cache_shardings(cache, self.mesh))
         t_start = self._clock()
         with self.telemetry.span("serve.prefill"):
             tok, cache = self._prefill(dep.params, prompts, cache)
@@ -408,7 +453,10 @@ class ServingNode:
             "decode_spans": decode_spans,
             "batch_span": (t_start, t_end),
         }
-        return torch.stack(toks, dim=1).cpu().numpy(), meta
+        out = torch.stack(toks, dim=1)
+        if is_dtensor(out):
+            out = out.full_tensor()
+        return out.cpu().numpy(), meta
 
     # -- SLOs / observability -------------------------------------------
 

@@ -83,3 +83,131 @@ def sync_rounds(node, target, rounds):
         out = node.update_parameters({"w": w}, num_examples=2 + r)
         w = np.array(out["w"], np.float32)  # a jax array or a CPU tensor
     return w.tolist()
+
+
+def mesh_serving_rank(rank, world, model_axis, root, archs, new_tokens):
+    """One rank of a gloo ``(world // model_axis, model_axis)`` mesh. For each
+    arch: serve the reference's weights, pushed to ``root/<arch>/store``,
+    through ``ServingNode(mesh=)`` and through ``serve_batch`` on DTensor
+    weights loaded from ``root/<arch>/params.npz``; write the tokens and the
+    prefill logits (whole, as every rank sees them) to
+    ``root/<arch>/rank<r>.npz``. Also records ``shard_batch``'s placements and
+    whether a DTensor handed to a kernel op raised."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import DiskFolder
+    from repro_torch.core.store import WeightStore
+    from repro_torch.core.tree import LeafSpec, tree_unflatten
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.mesh import data_axes, make_host_mesh, start_group
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.sharding import distribute, param_shardings, serve_cache_shardings
+    from repro_torch.models import build_model
+    from repro_torch.models.common import load_jax_params
+    from repro_torch.models.sharded import serving_mode
+    from repro_torch.serving import ServingNode
+
+    torch.set_num_threads(1)
+    start_group(f"{root}/pg", rank=rank, world_size=world, device="cpu")
+    try:
+        mesh = make_host_mesh(model_axis, device_type="cpu")
+        for arch in archs:
+            d = f"{root}/{arch}"
+            cfg = get_config(arch).reduced()
+            model = build_model(cfg)
+            prompts = np.load(f"{d}/prompts.npy")
+            node = ServingNode(WeightStore(DiskFolder(f"{d}/store")), cfg, mesh=mesh,
+                               device="cpu")
+            assert node.poll_once()
+            node_tokens, _ = node.generate(prompts, new_tokens=new_tokens)
+            with np.load(f"{d}/params.npz") as z:
+                leaves = [z[f"arr_{i}"] for i in range(len(z.files))]
+            tree = tree_unflatten(LeafSpec.of(model.abstract()).treedef, leaves)
+            params = load_jax_params(model, tree, device="cpu")
+            dparams = distribute(params, param_shardings(params, mesh))
+            batch_tokens = serve_batch(cfg, dparams, prompts, new_tokens=new_tokens).numpy()
+            B, S = prompts.shape
+            cache = model.init_cache(B, S + 1, device="cpu")
+            cache = distribute(cache, serve_cache_shardings(cache, mesh))
+            toks = shard_batch({"t": prompts}, mesh, batch_axes=data_axes(mesh))["t"]
+            with serving_mode(dparams):
+                logits, _ = model.prefill(dparams, toks, cache)
+            np.savez(f"{d}/rank{rank}.npz", node=node_tokens, batch=batch_tokens,
+                     logits=logits.full_tensor().numpy())
+        # shard_batch: the batch dim over the data axes where it divides
+        odd = shard_batch({"even": np.zeros((2 * mesh.size(0), 3), np.int32),
+                           "odd": np.zeros((2 * mesh.size(0) + 1, 3), np.int32)}, mesh)
+        placed = {k: [str(p) for p in v.placements] for k, v in odd.items()}
+        # a DTensor handed to a kernel op outside local_map
+        q = distribute({"q": torch.zeros(2, 4, 2, 1, 32)}, param_shardings(
+            {"q": torch.zeros(2, 4, 2, 1, 32)}, mesh))["q"]
+        raised = {}
+        for name, call in (("flash_attention", lambda: flash_ops.flash_attention(q, q[:, :, :, 0],
+                                                                                  q[:, :, :, 0])),
+                           ("decode_attention", lambda: dec_ops.decode_attention(
+                               q[:, :1], q[:, :, :, 0], q[:, :, :, 0], torch.ones(4, dtype=bool))),
+                           ("ssd_scan", lambda: ssd_ops.ssd(q[..., 0, :], q[..., 0, 0],
+                                                            q[:, :, 0, 0], q[:, :, 0, 0]))):
+            try:
+                call()
+                raised[name] = False
+            except TypeError as e:
+                raised[name] = "local_map" in str(e)
+        with open(f"{root}/extra{rank}.json", "w") as f:
+            json.dump({"mesh": list(mesh.shape), "shard_batch": placed, "raised": raised}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cuda_rank(rank, root, arch):
+    """The one rank of a world-1 NCCL mesh on the card: serve ``arch``'s
+    reduced config (bf16 weights from a seed, pushed to a memory store)
+    through ``ServingNode(mesh=)`` and without a mesh; write both token sets
+    and the mesh run's kernel launches to ``root/mesh_cuda.json``."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialize import NodeUpdate
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.launch.mesh import make_host_mesh, start_group
+    from repro_torch.models import build_model
+
+    start_group(f"{root}/pg", rank=rank, world_size=1, device="cuda")
+    try:
+        cfg = get_config(arch).reduced().replace(dtype="bfloat16")
+        params = build_model(cfg).init(0, device="cuda")
+        store = api.connect(f"memory://mesh-cuda-{arch}")
+        store.push(NodeUpdate(params=params, num_examples=1, node_id="t", counter=0))
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 40), dtype=np.int32)
+        new = 8
+        plain = api.serve(store, cfg, start=False)
+        assert plain.poll_once()
+        meshless, _ = plain.generate(prompts, new_tokens=new)
+        node = api.serve(store, cfg, mesh=make_host_mesh(), start=False)
+        assert node.poll_once()
+        for k in (fk, dk, sk):
+            k.reset_launches()
+        tokens, _ = node.generate(prompts, new_tokens=new)
+        torch.cuda.synchronize()
+        launches = {**fk.LAUNCHES, **dk.LAUNCHES, **sk.LAUNCHES}
+        L = cfg.n_layers
+        want = ({"flash_attention": 0, "decode_attention": 0, "ssd_scan": L} if cfg.ssm_state
+                else {"flash_attention": L, "decode_attention": L * (new - 1), "ssd_scan": 0})
+        with open(f"{root}/mesh_cuda.json", "w") as f:
+            json.dump({"tokens": tokens.tolist(), "meshless_tokens": meshless.tolist(),
+                       "launches": launches, "want_launches": want}, f)
+    finally:
+        dist.destroy_process_group()

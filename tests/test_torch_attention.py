@@ -183,7 +183,7 @@ def test_fill_ring_matches_reference(granite, seq, capacity):
     _assert_cache_equal(tcache, jcache)
 
 
-def test_softcap_takes_the_masked_softmax_on_cpu_and_has_no_kernel():
+def test_softcap_takes_the_masked_softmax_on_cpu_and_has_no_kernel(monkeypatch):
     jcfg = jget_config("granite-3-2b").reduced().replace(attn_logit_softcap=30.0)
     cfg = get_config("granite-3-2b").reduced().replace(attn_logit_softcap=30.0)
     jp = JA.init_attention(jax.random.PRNGKey(1), jcfg)
@@ -197,8 +197,18 @@ def test_softcap_takes_the_masked_softmax_on_cpu_and_has_no_kernel():
     np.testing.assert_allclose(TA.attn_full(tp, cfg, tx).numpy(),
                                np.asarray(JA.attn_full(jp, jcfg, jx)), rtol=1e-5, atol=1e-5)
 
-    class OnCuda:  # the check only asks where the tensor lies
-        is_cuda = True
+    # a capped config never reaches a kernel op, with use_flash too, and the
+    # prefill + decode that serving runs take the capped masked softmax
+    def no_kernel(*a, **k):
+        raise AssertionError("a capped config reached a kernel op")
 
-    with pytest.raises(NotImplementedError, match="softcap"):
-        TA._no_softcap_on_cuda(OnCuda(), cfg)
+    monkeypatch.setattr(TA.flash_ops, "flash_attention", no_kernel)
+    monkeypatch.setattr(TA.dec_ops, "decode_attention", no_kernel)
+    np.testing.assert_allclose(TA.attn_full(tp, cfg, tx, use_flash=True).numpy(),
+                               np.asarray(JA.attn_full(jp, jcfg, jx)), rtol=1e-5, atol=1e-5)
+    cache = TA.init_attn_cache(cfg, 1, 12)
+    out, cache = TA.attn_prefill(tp, cfg, tx, cache)
+    np.testing.assert_allclose(out.numpy(), np.asarray(JA.attn_full(jp, jcfg, jx)),
+                               rtol=1e-5, atol=1e-5)
+    step, _ = TA.attn_decode(tp, cfg, tx[:, -1:], cache, 9)
+    assert torch.isfinite(step).all()

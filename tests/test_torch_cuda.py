@@ -609,14 +609,48 @@ def test_encdec_and_prefix_serving_run_the_attention_kernels(cuda, arch):
         assert torch.equal(fast, serve_batch_loop(cfg, params, prompts, new_tokens=5, **extra))
 
 
-def test_grok_softcap_still_refuses_the_card(cuda):
-    """grok-1's attn_logit_softcap has no CUDA kernel: serving it on the card
-    raises, with no fallback to plain attention."""
+def test_grok_softcap_served_on_the_card(cuda):
+    """grok-1's attn_logit_softcap takes the capped plain attention on the
+    card, as the reference routes it: the card equals the CPU (tokens, and
+    logits within 2e-5 of the largest), and neither attention kernel runs."""
     from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build_model
 
     cfg = get_config("grok-1-314b").reduced()
-    params = build_model(cfg).init(0, device=cuda)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        serve_batch(cfg, params, np.zeros((1, 4), np.int32), new_tokens=2)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    fk.reset_launches()
+    dk.reset_launches()
+    got = serve_batch(cfg, on_card, prompts, new_tokens=6).cpu()
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention"] == 0 and dk.LAUNCHES["decode_attention"] == 0
+    assert torch.equal(got, serve_batch(cfg, params, prompts, new_tokens=6))
+    with torch.inference_mode():
+        logits = [model.prefill(p, torch.from_numpy(prompts).to(d), model.init_cache(
+            2, 25, device=d))[0].cpu() for p, d in ((on_card, cuda), (params, "cpu"))]
+    assert (logits[0] - logits[1]).abs().max() <= 2e-5 * logits[1].abs().max()
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-130m"])
+def test_mesh_serving_on_one_card(cuda, tmp_path, arch):
+    """A world-1 NCCL group (FileStore) and its (1, 1) host mesh, in a child
+    process: ``ServingNode(mesh=)`` serves the tokens of the mesh-less path,
+    through the kernels on the local shards, once a layer a prefill
+    (flash_attention / ssd_scan) and once a layer a token (decode_attention)."""
+    import json
+
+    import torch.multiprocessing as tmp
+
+    import _torch_children as kids
+
+    tmp.start_processes(kids.mesh_cuda_rank, args=(str(tmp_path), arch), nprocs=1,
+                        start_method="spawn")  # joins; a child's error raises here
+    rec = json.loads((tmp_path / "mesh_cuda.json").read_text())
+    assert rec["tokens"] == rec["meshless_tokens"]
+    assert rec["launches"] == rec["want_launches"], rec

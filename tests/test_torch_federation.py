@@ -140,9 +140,17 @@ def test_port_imports_neither_jax_nor_reference():
         "import importlib, pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "# launch/ is a namespace package, which walk_packages does not enter\n"
+        "import repro_torch.launch as launch\n"
+        "for m in pkgutil.iter_modules(launch.__path__, 'repro_torch.launch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "       or k.startswith('jax')]\n"
         "assert not bad, bad\n"
+        "new = {'repro_torch.launch.mesh', 'repro_torch.launch.sharding',\n"
+        "       'repro_torch.launch.costs', 'repro_torch.launch.dryrun',\n"
+        "       'repro_torch.models.sharded', 'repro_torch.data.pipeline'}\n"
+        "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -150,7 +158,7 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) > 20
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    for path in [*(SRC / "repro_torch").rglob("*.py"), SRC.parent / "chip_smoke.py"]:
         text = path.read_text()
         for banned in ("import jax", "from jax", "import repro.", "from repro.",
                        "from repro import", "import repro\n"):
