@@ -35,6 +35,15 @@ main paths end to end:
   ``repro_torch.examples.federated_serving`` whole (two trainers federate
   pythia-14m while a serving node hot-swaps their aggregates under traffic,
   its served tokens held against the plain f32 model);
+* the nine other example twins (``repro_torch.examples``), each through its
+  ``main`` at the reference's defaults: transport pipelines and FedAvgM
+  recovery, Mamba2 serving with three strategies on one store (also
+  ``serve_demo`` at mamba2-130m's published config: a 12-token prompt,
+  shorter than one chunk, through ``ssd_scan`` in every layer), sync vs
+  async MnistCNN threads, spawned clients (one SIGKILLed), sharded and
+  hierarchical gossip, an observed fleet (also at ResNet-18's parameter
+  count), a chaos soak and an elastic fleet, each aggregating with
+  ``fed_agg``;
 * the rest of the decoder zoo through the serving path, at full width in
   bf16 with depth cut: llama4-scout (MoE), recurrentgemma-9b (RG-LRU and
   windowed attention) and minicpm3-4b (MLA, plain attention), each also held
@@ -204,6 +213,11 @@ FED_LLM_ADAPTER_SHARE = 0.01  # an adapters-only push, over a full run's push
 # position's largest logit magnitude below the best (bf16's attention
 # tolerance). The first batch on each of the first SERVED_SAMPLES weight sets.
 SERVED_TOL, SERVED_SAMPLES = 2e-2, 2
+# The nine remaining example twins (repro_torch.examples), each through its
+# main at the reference's defaults: sharded_federation's scan-cost fleets (the
+# reference's own), the stdout lines kept per run, and the prefill's timed
+# calls in serve_full (mamba2-130m's published config, 4 x 12-token prompts).
+EXAMPLE_SCAN_FLEETS, EXAMPLE_TAIL_LINES, EXAMPLE_PREFILL_REPS = (200, 2000), 6, 5
 
 # ssd_scan checks: the reference's sweeps (tests/test_kernels.py:186-190, f32,
 # its 1e-4), then model layout with B/C shared by the heads.
@@ -701,7 +715,9 @@ def check_ssd(dev, gen) -> tuple[list, float]:
     """ssd_scan against its plain version: the reference's four sweeps (f32,
     its dA, its 1e-4); then, with the model's dA, the serving shape and S =
     8192 in bf16 (2e-2, atol scaled by min(1, max|want|)), a ragged S = 1000 and a nonzero
-    initial state (f32, 1e-4), and each final state at 1e-4 relative. With
+    initial state (f32, 1e-4), a prompt of 12 tokens, shorter than one chunk,
+    at mamba2-130m's widths in bf16 and at its reduced() widths in f32 (the
+    examples phase's serve_demo), and each final state at 1e-4 relative. With
     the model's dA the running sum of dA reaches ~-5000 in a chunk, where f32
     prefix sums (the reference's arithmetic, and the plain version's in f32)
     lose ~5e-4 in each decay's exponent; so there the plain version runs in
@@ -737,7 +753,12 @@ def check_ssd(dev, gen) -> tuple[list, float]:
         (1, 8192, 24, 64, 128, 256, torch.bfloat16, True),  # 32 chunks: 4 cluster rounds
         (2, 1000, 24, 64, 128, 256, torch.float32, False),
         (2, 1000, 4, 64, 128, 256, torch.float32, True),
-        (1, 333, 3, 128, 64, 128, torch.float32, True)]
+        (1, 333, 3, 128, 64, 128, torch.float32, True),
+        # the examples phase's serve_demo prefills: 4 prompts of 12 tokens, one
+        # partial chunk (S < chunk) at mamba2-130m's published widths (bf16,
+        # ssd_mma_kernel) and at its reduced() widths (f32, ssd_scan_kernel)
+        (4, 12, 24, 64, 128, 256, torch.bfloat16, False),
+        (4, 12, 8, 64, 32, 32, torch.float32, False)]
     for B, S, H, P, N, chunk, dtype, with_init in cases:
         x, dA, Bm, Cm = ssd_case(dev, gen, B, S, H, P, N, dtype)
         init = (torch.randn(B, H, P, N, device=dev, generator=gen) * 0.3 if with_init
@@ -1480,17 +1501,12 @@ def check_deposits(dev, pulled, fk, fed_agg_ref, fed_opt_ref, seed: int) -> dict
 
 
 def _obs_launches(store_uri: str) -> dict:
-    """The kernel launches that the nodes of a store made in their own
-    processes: the ``kernel.*`` counters of each node's newest obs snapshot
-    (a resumed node carries its dead incarnation's count forward)."""
-    from repro_torch.core import collect_obs
+    """The ``fed_agg`` and ``fed_opt`` launches that the nodes of a store made
+    in their own processes (``kernel_launches`` over their obs snapshots)."""
+    from repro_torch.core import collect_obs, kernel_launches
 
-    launches = {"fed_agg": 0, "fed_opt": 0}
-    for payloads in collect_obs(store_uri).values():
-        counters = payloads[-1].get("counters") or {}
-        for k in launches:
-            launches[k] += int(counters.get(f"kernel.{k}", 0))
-    return launches
+    counts = kernel_launches(collect_obs(store_uri))
+    return {k: counts.get(k, 0) for k in ("fed_agg", "fed_opt")}
 
 
 def federation_processes(dev, root: str, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
@@ -2338,6 +2354,229 @@ def federated_serving_phase(dev, kernels: dict) -> tuple[dict, dict]:
             "launches": launches}, launches
 
 
+def examples_phase(dev, root: str, fk, fed_agg_ref, fed_opt_ref) -> tuple[dict, dict]:
+    """The nine remaining example twins (``repro_torch.examples``) on the
+    card, each through ``main([..., "--device", "cuda"])`` at the reference's
+    defaults (stdout kept, its tail recorded); ``multiprocess_federation``
+    also with ``--crash``, ``observed_fleet`` also at ``--size`` N_RESNET18.
+    Each run is timed and must exit 0 with ``fed_agg`` launched: counted by
+    the wrapper in this process, by the strategies in the children for
+    ``multiprocess_federation``, and reported by the strategies (or their
+    nodes' obs counters) too. Then, per twin: the FedAvgM momentum restored
+    bit for bit; ``serve_and_strategies``' reduced mamba2 launching
+    ``ssd_scan`` once per layer in its prefill (S 12 < chunk 32), its tokens
+    equal to ``serve_batch_loop``'s (the decode path alone) on the same
+    weights and to the CPU's; ``serve_demo`` at mamba2-130m's published
+    config (``serve_full``); every multiprocess survivor finished; the
+    gossip coverage exact (asserted inside the twin); observed_fleet's
+    rollup holding 4 nodes x 6 rounds; both soaks passed; and ``fed_agg`` and
+    ``fed_opt`` over the pulled deposits of the multiprocess and fleet-soak
+    stores equal to their plain versions (``check_deposits``). Returns
+    (record, launches)."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.api import connect
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.examples import serve_and_strategies
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.launch.serve import serve_batch_loop
+    from repro_torch.models import build_model
+
+    runs, checks = {}, {}
+    launches = {"fed_agg": 0, "ssd_scan": 0}
+
+    def drive(label: str, name: str, argv: list, *, children: bool = False, **kw) -> dict:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        fk.reset_launches()
+        sk.reset_launches()
+        rec, out = {}, io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = module.main([*argv, "--device", dev.type], record=rec, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"argv": argv, "exit_code": code, "wall_s": wall,
+               "launches": {"fed_agg": (rec["launches"]["fed_agg"] if children
+                                        else fk.LAUNCHES["fed_agg"]),
+                            "ssd_scan": sk.LAUNCHES["ssd_scan"]},
+               "strategies_report": rec["launches"],
+               "stdout_tail": out.getvalue().splitlines()[-EXAMPLE_TAIL_LINES:]}
+        if code != 0 or run["launches"]["fed_agg"] < 1 or rec["launches"]["fed_agg"] < 1:
+            raise AssertionError(f"{label}: exit code {code}, fed_agg launches "
+                                 f"{run['launches']} (the strategies report {rec['launches']})"
+                                 f":\n{out.getvalue()[-3000:]}")
+        for k in launches:
+            launches[k] += run["launches"][k]
+        runs[label] = run
+        return rec
+
+    rec = drive("transport_pipelines", "transport_pipelines", [])
+    recovery = rec["recovery"]
+    if not (recovery["bit_equal"] and recovery["restored"] == recovery["momentum"] > 0):
+        raise AssertionError(f"transport_pipelines: FedAvgM momentum not restored: {recovery}")
+    runs["transport_pipelines"].update(envelope=rec["pipelines"]["envelope"],
+                                       pipelines=rec["pipelines"]["pipelines"],
+                                       prefetch=rec["prefetch"], recovery=recovery)
+
+    rec = drive("serve_and_strategies", "serve_and_strategies", [])
+    cfg = get_config("mamba2-130m").reduced()
+    served = rec["serve"]
+    params = build_model(cfg).init(0, device=dev)  # the twin's weights: its seed, its device
+    loop = serve_batch_loop(cfg, params, served["prompts"], new_tokens=served["tokens"].shape[1])
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = serve_and_strategies.serve_demo(device="cpu",
+                                              params=tree_map(lambda t: t.cpu(), params))
+    n_ssd = runs["serve_and_strategies"]["launches"]["ssd_scan"]
+    if n_ssd != cfg.n_layers or not torch.equal(loop, served["tokens"]) \
+            or not torch.equal(cpu["tokens"], served["tokens"].cpu()):
+        raise AssertionError(f"serve_and_strategies ({cfg.name}): ssd_scan launched {n_ssd} "
+                             f"times for {cfg.n_layers} layers; tokens {served['tokens'].tolist()}"
+                             f", decode loop {loop.tolist()}, CPU {cpu['tokens'].tolist()}")
+    runs["serve_and_strategies"].update(
+        config=cfg.name, n_layers=cfg.n_layers, prompt=list(served["prompts"].shape),
+        chunk=cfg.ssm_chunk, tokens_equal_decode_loop=True, tokens_equal_cpu=True,
+        strategy_rounds=rec["strategies"]["rounds"])
+    serve_full = examples_serve_full(dev, sk, serve_and_strategies, serve_batch_loop)
+    launches["ssd_scan"] += sum(r["ssd_scan_launches"] for r in serve_full)
+
+    rec = drive("straggler_speedup", "straggler_speedup", [])
+    runs["straggler_speedup"].update(
+        speedups=rec["virtual_clock"]["speedups"],
+        crash_walls=[rec["virtual_clock"]["crash_sync_wall"],
+                     rec["virtual_clock"]["crash_async_wall"]],
+        sync_wall_s=rec["threads"]["sync"]["wall_s"], async_wall_s=rec["threads"]["async"]["wall_s"],
+        sync_over_async=rec["threads"]["ratio"])
+
+    for label, extra, survivors in (("multiprocess_federation", [], 3),
+                                    ("multiprocess_federation_crash", ["--crash"], 2)):
+        store = os.path.join(root, label)
+        rec = drive(label, "multiprocess_federation", ["--store", store, *extra], children=True)
+        victim = [c for c in rec["clients"] if "error" in c]
+        if rec["finished"] != survivors or any(c["aggregations"] < 1 for c in rec["clients"]
+                                               if "error" not in c) \
+                or (extra and not (len(victim) == 1 and victim[0]["sigkilled"])):
+            raise AssertionError(f"{label}: {rec['clients']}")
+        runs[label].update(clients=rec["clients"], startup_s=rec["startup_s"])
+        checks[label] = check_deposits(dev, connect(store).pull(), fk, fed_agg_ref,
+                                       fed_opt_ref, seed=23)
+
+    rec = drive("sharded_federation", "sharded_federation", [], fleets=EXAMPLE_SCAN_FLEETS)
+    nodes = rec["threads"]["nodes"]
+    if any(n["aggregations"] < 1 for n in nodes.values()):
+        raise AssertionError(f"sharded_federation: a node never aggregated: {nodes}")
+    runs["sharded_federation"].update(
+        spread=rec["threads"]["spread"], scan_cost=rec["scan_cost"]["fleets"],
+        saw_every_other_group=all(
+            {f"group:{g}" for g in range(3) if g != n["group"]} <= set(n["gossip_peers"])
+            for n in nodes.values()))
+
+    rec = drive("hierarchical_gossip", "hierarchical_gossip", [])  # asserts the coverage
+    runs["hierarchical_gossip"].update(coverage=rec["coverage"], spread=rec["spread"],
+                                       super_folds=rec["super_folds"], spans=rec["spans"])
+
+    for label, extra in (("observed_fleet", []),
+                         ("observed_fleet_resnet18", ["--size", str(N_RESNET18)])):
+        store = os.path.join(root, label)
+        rec = drive(label, "observed_fleet", ["--store", store, *extra])
+        if (rec["fleet"]["nodes_reporting"], rec["fleet"]["rounds_total"]) != (4, 24):
+            raise AssertionError(f"{label}: rollup {rec['fleet']}")
+        runs[label].update(size=rec["size"], fleet=rec["fleet"])
+        shutil.rmtree(store, ignore_errors=True)
+
+    store = os.path.join(root, "fleet_soak")
+    rec = drive("fleet_soak", "fleet_soak", ["--store", store])
+    if not rec["passed"]:
+        raise AssertionError(f"fleet_soak failed:\n{rec['summary']}")
+    report = rec["report"]
+    runs["fleet_soak"].update(passed=True, crashes_injected=report["crashes_injected"],
+                              restarts=report["restarts"],
+                              recovery_latency_s=report["recovery_latency"],
+                              rounds_per_sec=report["rounds_per_sec"])
+    checks["fleet_soak"] = check_deposits(dev, connect(store).pull(), fk, fed_agg_ref,
+                                          fed_opt_ref, seed=24)
+
+    rec = drive("elastic_fleet", "elastic_fleet", ["--store", os.path.join(root, "elastic")])
+    if not rec["passed"]:
+        raise AssertionError(f"elastic_fleet failed:\n{rec['summary']}")
+    runs["elastic_fleet"].update(passed=True, workers_lost=rec["report"]["workers_lost"],
+                                 stranded=rec["report"]["stranded"],
+                                 rescuer_adopted=rec["rescuer_adopted"],
+                                 adoption_latency_s=rec["adoption_latency_s"])
+    return {"runs": runs, "serve_full": serve_full, "deposit_checks": checks,
+            "wall_s": sum(r["wall_s"] for r in runs.values()), "launches": launches}, launches
+
+
+def examples_serve_full(dev, sk, serve_and_strategies, serve_batch_loop) -> list[dict]:
+    """``serve_demo`` (4 prompts of 12 tokens, 12 new) at mamba2-130m's
+    published config, bf16: a prompt shorter than one chunk of 256, so the
+    prefill's ``ssd_mma_kernel`` scans one partial chunk in each of the 24
+    layers; then the same widths in f32 (``ssd_scan_kernel``). Each must
+    launch ``ssd_scan`` once per layer. In f32 the tokens must equal
+    ``serve_batch_loop``'s (the decode path alone) on the same weights. In
+    bf16 the two paths round differently (on the CPU's plain path too), so
+    a near-tie can take another token and the sequences part: there the
+    agreement is recorded, and the served tokens are held near-argmax to
+    the plain f32 model on the same weights, teacher-forced
+    (``check_served_tokens``). Also times the prefill alone (``serve_batch``
+    with one new token, host wall, synchronised)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model
+
+    records = []
+    published = get_config("mamba2-130m")
+    for cfg in (published, published.replace(dtype="float32")):
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = serve_and_strategies.serve_demo(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_ssd = sk.LAUNCHES["ssd_scan"]
+        tokens = rec["tokens"]
+        params = build_model(cfg).init(0, device=dev)
+        loop = serve_batch_loop(cfg, params, rec["prompts"], new_tokens=tokens.shape[1])
+        same = (loop == tokens).all(dim=0)
+        first_split = int(same.logical_not().nonzero()[0]) if not bool(same.all()) else None
+        record = {"config": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+                  "d_model": cfg.d_model, "chunk": cfg.ssm_chunk,
+                  "prompts": list(rec["prompts"].shape), "new_tokens": tokens.shape[1],
+                  "ssd_scan_launches": n_ssd, "wall_s": wall,
+                  "tokens_equal_decode_loop": first_split is None,
+                  "first_position_apart": first_split,
+                  "agreement": float((loop == tokens).float().mean())}
+        if n_ssd != cfg.n_layers:
+            raise AssertionError(f"serve_demo {cfg.name} {cfg.dtype}: ssd_scan launched {n_ssd} "
+                                 f"times for {cfg.n_layers} layers")
+        if cfg.dtype == "float32" and first_split is not None:
+            raise AssertionError(f"serve_demo {cfg.name} f32: tokens {tokens.tolist()} != the "
+                                 f"decode loop's {loop.tolist()}")
+        if cfg.dtype != "float32":
+            prompts = torch.as_tensor(rec["prompts"], device=dev)
+            f32 = tree_map(lambda t: t.to(torch.float32, copy=True), params)
+            record["served_token_checks"] = check_served_tokens(
+                cfg, {0: (prompts, tokens, f32, ())})
+            del f32
+        times = []
+        for _ in range(EXAMPLE_PREFILL_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve_batch(cfg, params, rec["prompts"], new_tokens=1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        record["prefill_ms"] = sorted(times[1:])[len(times[1:]) // 2]  # median after a warm call
+        records.append(record)
+        del params, loop
+    return records
+
+
 def serving_grok(dev, kernels: dict) -> dict:
     """grok-1 on the card. Its logit softcap takes the capped plain attention
     on every device, as the reference routes it, so neither attention kernel
@@ -2820,7 +3059,15 @@ def main() -> None:
     emit("federated_serving", card=card, nvidia_smi=smi, **record)
     launches["fed_agg"] += fs_launches["fed_agg"]
 
-    # -- 18. serving_consistency / 19. serving: the port's second main path -----
+    # -- 18. examples: the nine remaining example twins, through their mains
+    with tempfile.TemporaryDirectory(prefix="repro_torch_examples_") as root:
+        record, ex_launches = examples_phase(dev, root, fk, fed_agg_ref, fed_opt_ref)
+    emit("examples", card=card, nvidia_smi=smi, **record)
+    launches["fed_agg"] += ex_launches["fed_agg"]
+    max_err["fed_agg"] = max(max_err["fed_agg"], *(
+        c["max_abs_err"]["fed_agg"] for c in record["deposit_checks"].values()))
+
+    # -- 19. serving_consistency / 20. serving: the port's second main path -----
     emit("serving_consistency", **serving_consistency(
         dev, SERVE_ARCH, CONSIST_B, CONSIST_S, CONSIST_NEW, flash_kernel, (2, 64)))
     record, serving_launches = serving(dev, SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW,
@@ -2838,7 +3085,7 @@ def main() -> None:
     profiles = {"flash_attention": record["profile"]["prefill"],
                 "decode_attention": record["profile"]["prefill_and_16_tokens"]}
 
-    # -- 20. serving_ssm_consistency / 21. serving_ssm: Mamba2, the reference's
+    # -- 21. serving_ssm_consistency / 22. serving_ssm: Mamba2, the reference's
     #        serving default, through the same entry points -------------------------
     emit("serving_ssm_consistency", **serving_consistency(
         dev, SSM_ARCH, SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW, ssd_kernel,
@@ -2849,7 +3096,7 @@ def main() -> None:
                              f"{record['batches']} prefills of {record['n_layers']} layers")
     emit("serving_ssm", **record)
     ssm_record = record
-    launches.update(ssm_launches)
+    launches["ssd_scan"] = ssm_launches["ssd_scan"] + ex_launches["ssd_scan"]
     profiles["ssd_scan"] = record["profile"]["prefill"]
 
     # the dry run is CPU work on fake tensors, one core: it runs beside the zoo
@@ -2857,33 +3104,33 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="repro_torch_launch_")
     dryrun = dryrun_start(work)
 
-    # -- 22. serving_zoo: MoE, RG-LRU and MLA decoders through the same path ----
+    # -- 23. serving_zoo: MoE, RG-LRU and MLA decoders through the same path ----
     attn_kernels = {"flash_attention": flash_kernel, "decode_attention": dec_kernel}
     record, zoo_launches = serving_zoo(dev, attn_kernels)
     emit("serving_zoo", nvidia_smi=smi, **record)
     for name in zoo_launches:
         launches[name] += zoo_launches[name]
 
-    # -- 23. serving_encdec / 24. serving_prefix: the enc-dec and the VLM prefix
+    # -- 24. serving_encdec / 25. serving_prefix: the enc-dec and the VLM prefix
     for phase, arch in (("serving_encdec", ENCDEC_ARCH), ("serving_prefix", PREFIX_ARCH)):
         record, modal_launches = serving_modal(dev, arch, attn_kernels)
         emit(phase, nvidia_smi=smi, **record)
         for name in modal_launches:
             launches[name] += modal_launches[name]
 
-    # -- 25. serving_grok: grok-1's softcap on the card (plain capped attention)
+    # -- 26. serving_grok: grok-1's softcap on the card (plain capped attention)
     emit("serving_grok", nvidia_smi=smi, **serving_grok(dev, attn_kernels))
 
-    # -- 26. mesh_serving: api.serve(mesh=) on a world-1 NCCL mesh, in a child
+    # -- 27. mesh_serving: api.serve(mesh=) on a world-1 NCCL mesh, in a child
     mesh_records, mesh_launches = mesh_serving(work)
     emit("mesh_serving", nvidia_smi=smi, models=mesh_records)
     for name, n in mesh_launches.items():
         launches[name] += n
 
-    # -- 27. step_costs: each served step's flops and bytes beside its p50
+    # -- 28. step_costs: each served step's flops and bytes beside its p50
     emit("step_costs", nvidia_smi=smi, **step_costs_phase(serve_record, ssm_record))
 
-    # -- 28. dryrun: python -m repro_torch.launch.dryrun on the fake 16x16 mesh
+    # -- 29. dryrun: python -m repro_torch.launch.dryrun on the fake 16x16 mesh
     emit("dryrun", **dryrun_join(*dryrun))
     shutil.rmtree(work, ignore_errors=True)
     emit("timer_check", **timer_check(timings, profiles))

@@ -90,7 +90,14 @@ from .strategies import (
     Strategy,
     get_strategy,
 )
-from .telemetry import SpanRecorder, Telemetry, chrome_trace, collect_obs, telemetry_rollups
+from .telemetry import (
+    SpanRecorder,
+    Telemetry,
+    chrome_trace,
+    collect_obs,
+    kernel_launches,
+    telemetry_rollups,
+)
 from .transport import (
     PipelineStats,
     Prefetcher,
@@ -127,4 +134,5 @@ __all__ = [
     "worker_kill_victims", "fleet_state_hash", "run_worker", "run_fleet_local",
     "assemble_report",
     "Telemetry", "SpanRecorder", "collect_obs", "telemetry_rollups", "chrome_trace",
+    "kernel_launches",
 ]

@@ -396,6 +396,20 @@ def collect_obs(store_uri_or_folder: Any) -> dict[str, list[dict[str, Any]]]:
     }
 
 
+def kernel_launches(obs_by_node: dict[str, list[dict[str, Any]]]) -> dict[str, int]:
+    """Kernel launches a fleet's nodes made, wherever they ran: the
+    ``kernel.<name>`` counters of each node's newest payload, summed by name
+    (a resumed or adopted node carries its earlier incarnation's count
+    forward, so the newest payload holds the node's total)."""
+    totals: dict[str, int] = {}
+    for payloads in obs_by_node.values():
+        counters = (payloads[-1].get("counters") or {}) if payloads else {}
+        for key, n in counters.items():
+            if key.startswith("kernel."):
+                totals[key[len("kernel."):]] = totals.get(key[len("kernel."):], 0) + int(n)
+    return totals
+
+
 def telemetry_rollups(obs_by_node: dict[str, list[dict[str, Any]]]) -> dict[str, Any]:
     """Fold collected ``obs/`` payloads into per-node + fleet rollups.
 

@@ -654,3 +654,27 @@ def test_mesh_serving_on_one_card(cuda, tmp_path, arch):
     rec = json.loads((tmp_path / "mesh_cuda.json").read_text())
     assert rec["tokens"] == rec["meshless_tokens"]
     assert rec["launches"] == rec["want_launches"], rec
+
+
+def test_serve_and_strategies_twin_on_the_card(cuda):
+    """The example twin's ``serve_demo`` at the reduced mamba2 (4 prompts of
+    12 tokens, one partial chunk of 32): ``ssd_scan`` once a layer in its
+    prefill, and the tokens of the decode recurrence alone on the same
+    weights; its strategies aggregate through ``fed_agg``."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_and_strategies
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.launch.serve import serve_batch_loop
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-130m").reduced()
+    sk.reset_launches()
+    rec = serve_and_strategies.serve_demo(device=cuda)
+    assert sk.LAUNCHES["ssd_scan"] == cfg.n_layers == 2
+    params = build_model(cfg).init(0, device=cuda)  # the twin's seed, on the card
+    loop = serve_batch_loop(cfg, params, rec["prompts"], new_tokens=12)
+    assert torch.equal(rec["tokens"], loop)
+    before = kernel.LAUNCHES["fed_agg"]
+    got = serve_and_strategies.strategies_demo(device=cuda, uri="memory://cuda-strategies")
+    assert got["launches"]["fed_agg"] >= 1
+    assert kernel.LAUNCHES["fed_agg"] - before == got["launches"]["fed_agg"]

@@ -468,6 +468,26 @@ def _obs_fixture(tmp_path) -> str:
     return str(tmp_path)
 
 
+def test_kernel_launches_sum_each_nodes_newest_counters(tmp_path):
+    """``kernel_launches`` sums the ``kernel.<name>`` counters of each node's
+    newest obs payload (a resumed node's counts carry forward, so older
+    payloads are not added again); other counters are ignored."""
+    store = tstore.WeightStore(tstore.DiskFolder(str(tmp_path)))
+    for nid, per_round in (("a", 2), ("b", 3)):
+        tel = Telemetry(nid, enabled=True, flush_every=1)
+        for _ in range(4):
+            tel.count("kernel.fed_agg", per_round)
+            tel.count("node.adopted")
+            tel.end_round(aggregated=True)
+            store.push_obs(nid, tel.seq, tel.snapshot())
+    tel = Telemetry("c", enabled=True)
+    tel.count("kernel.fed_opt", 5)
+    store.push_obs("c", 0, tel.snapshot())
+    got = ttel.kernel_launches(ttel.collect_obs(str(tmp_path)))
+    assert got == {"fed_agg": 4 * 2 + 4 * 3, "fed_opt": 5}
+    assert ttel.kernel_launches({}) == {} and ttel.kernel_launches({"x": []}) == {}
+
+
 def test_render_dashboard_matches_reference(tmp_path):
     store = _obs_fixture(tmp_path)
     got, want = [], []
@@ -501,6 +521,11 @@ def test_port_modules_import_with_jax_blocked():
             "import repro_torch.core.fleet, repro_torch.fleet, repro_torch.obs\n"
             "import repro_torch.checkpoint, repro_torch.examples.quickstart\n"
             "import repro_torch.core.simulation\n"
+            "import repro_torch.examples.transport_pipelines, repro_torch.examples.serve_and_strategies\n"
+            "import repro_torch.examples.straggler_speedup, repro_torch.examples.multiprocess_federation\n"
+            "import repro_torch.examples.sharded_federation, repro_torch.examples.hierarchical_gossip\n"
+            "import repro_torch.examples.observed_fleet, repro_torch.examples.fleet_soak\n"
+            "import repro_torch.examples.elastic_fleet\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code],
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
