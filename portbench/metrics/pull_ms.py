@@ -1,0 +1,6 @@
+"""Milliseconds of a federation round's ``pull`` span, the mean over the window."""
+from portbench import harness
+
+
+def read(records: dict) -> float | None:
+    return harness.span_mean_ms(records, "pull")
