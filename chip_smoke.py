@@ -910,6 +910,7 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
     from repro_torch.configs import get_config
     from repro_torch.core.serialize import NodeUpdate
     from repro_torch.core.store import make_folder
+    from repro_torch.core.telemetry import Telemetry
     from repro_torch.core.tree import LeafSpec, tree_map
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build_model
@@ -938,7 +939,10 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
     torch.cuda.reset_peak_memory_stats()
     mem_at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    node = serve(uri, cfg, poll_interval=0.05, wait=900.0, node_id="server-0", mesh=mesh)
+    # the node's own spans time each prefill, decode step and swap
+    tel = Telemetry("server-0", enabled=True, flush_every=10**9, ring_capacity=1 << 16)
+    node = serve(uri, cfg, poll_interval=0.05, wait=900.0, node_id="server-0", mesh=mesh,
+                 telemetry=tel)
     try:
         if not node.stats()["deployed"]:
             raise AssertionError("the serving node deployed nothing within 900 s")
@@ -948,6 +952,7 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
         node.generate(prompts[:, :16], new_tokens=2)  # warm-up: allocator, cuBLAS handles
         for wrapper in kernels.values():
             wrapper.reset_launches()
+        tel.recorder.drain()
         first, meta = node.generate(prompts, new_tokens=new_tokens)
         batches = [(first, meta)]
         if meta["counter"] != 0:
@@ -979,7 +984,7 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
         torch.cuda.synchronize()
         launches = {name: wrapper.LAUNCHES[name] for name, wrapper in kernels.items()}
         stats = node.stats()
-        swap_log = node.swap_log()
+        spans = tel.recorder.drain_records()
         # where a batch's time goes: prefill alone, then prefill + 16 tokens
         # (not on a mesh: there DTensor's host dispatch leads, PERF.md §5)
         profiled = None if mesh is not None else {
@@ -1009,21 +1014,23 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
     if last.shape != (batch, new_tokens) or not ((last >= 0) & (last < cfg.vocab_size)).all():
         raise AssertionError(f"bad tokens: shape {last.shape}")
 
-    # per-token decode latency: steady (no update in flight), while the second
-    # update is pushed, pulled and decoded on the host, and during its swap
-    swap = swap_log[-1]
+    # per-token decode latency, from the node's spans: steady (no update in
+    # flight), while the second update is pushed, pulled and decoded on the
+    # host, and during its swap
+    swap = [(r.t0, r.t0 + r.dur) for r in spans if r.name == "serve.swap"][-1]
+    decodes = [(r.t0, r.t0 + r.dur) for r in spans if r.name == "serve.decode"]
+    prefill_ms = [r.dur * 1e3 for r in spans if r.name == "serve.prefill"]
     steady, during_update, during = [], [], []
-    for _, m in batches:
-        for a, b in m["decode_spans"]:
-            if a < swap[1] and b > swap[0]:
-                during.append((b - a) * 1e3)
-            elif push_started < b and a < swap[0]:
-                during_update.append((b - a) * 1e3)
-            else:
-                steady.append((b - a) * 1e3)
+    for a, b in decodes:
+        if a < swap[1] and b > swap[0]:
+            during.append((b - a) * 1e3)
+        elif push_started < b and a < swap[0]:
+            during_update.append((b - a) * 1e3)
+        else:
+            steady.append((b - a) * 1e3)
     pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
     n_tokens = batch * new_tokens * len(batches)
-    decode_s = sum(b - a for _, m in batches for a, b in m["decode_spans"])
+    decode_s = sum(b - a for a, b in decodes)
     record = {
         "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
         "reduced": ({"n_layers": [published.n_layers, cfg.n_layers]}
@@ -1032,8 +1039,8 @@ def serving(dev, arch: str, batch: int, prompt: int, new_tokens: int,
         "new_tokens": new_tokens, "batches": len(batches),
         "mid_swap_batches_on_counter_0": sum(1 for c in kept if c == 0) - 1,
         "push_s": [p["push_s"] for p in pushes], "first_deploy_s": first_deploy_s,
-        "prefill_ms_first": batches[0][1]["prefill_s"] * 1e3,
-        "prefill_ms_p50": pct([m["prefill_s"] * 1e3 for _, m in batches], 50),
+        "prefill_ms_first": prefill_ms[0], "prefill_ms_p50": pct(prefill_ms, 50),
+        "prefill_ms_p99": pct(prefill_ms, 99),
         "decode_ms_p50_steady": pct(steady, 50), "decode_ms_p99_steady": pct(steady, 99),
         "decode_ms_p50_during_push_pull": pct(during_update, 50),
         "decode_ms_p99_during_push_pull": pct(during_update, 99),

@@ -58,8 +58,11 @@ class FederatedCallback(Callback):
             # (one of the two sampling semantics described in the paper).
             self.history.append({"epoch": epoch, "federated": False, "sampled": False})
             return
+        # the device-to-host copy of the parameters, in its own span
+        with self.node.telemetry.span("host_copy"):
+            params = trainer.host_params()
         new_params: PyTree | None = self.node.update_parameters(
-            trainer.host_params(), num_examples=self.num_examples_per_epoch, metrics=dict(logs)
+            params, num_examples=self.num_examples_per_epoch, metrics=dict(logs)
         )
         if new_params is not None:
             trainer.set_params(new_params)

@@ -67,7 +67,6 @@ exactly as strong as the flat store.
 """
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import math
 import threading
@@ -90,6 +89,7 @@ from .serialize import (
     serialize_fleet_blob,
 )
 from .store import SharedFolder, WeightStore
+from .telemetry import child_span
 from .transport import TransportPipeline, _LruCache
 from .tree import tree_weighted_mean
 from repro_torch.logs import get_logger
@@ -98,7 +98,6 @@ _log = get_logger("gossip")
 
 _SUMMARY_PREFIX = "summary/"
 GROUP_PEER_PREFIX = "group:"  # node_id prefix of summary pseudo-peers in pull()
-_NULL_SPAN = contextlib.nullcontext()
 
 
 def _summary_prefix(level: int) -> str:
@@ -1080,11 +1079,11 @@ class ShardedWeightStore:
         for t in range(1, self.levels):
             origin = path[t]
             holder_group = hier.holder(t, origin)
-            with self._span(f"gossip.l{t}.fold"):
+            with child_span(f"gossip.l{t}.fold", self._telemetry):
                 self._fold_super(t, origin, holder_group)
-            with self._span(f"gossip.l{t}.forward"):
+            with child_span(f"gossip.l{t}.forward", self._telemetry):
                 self._forward_super(t, origin, holder_group)
-            with self._span("gossip.down"):
+            with child_span("gossip.down", self._telemetry):
                 self._down_copy(group, t, holder_group)
 
     def _decode_summary(self, blob: bytes) -> NodeUpdate | None:
@@ -1191,14 +1190,6 @@ class ShardedWeightStore:
         self._rotation_pending[exclude] = len(served) < len(current)
         return out
 
-    def _span(self, name: str):
-        """Telemetry span when attached and enabled, shared no-op otherwise —
-        lets the per-level gossip phases nest without branching at each site."""
-        tel = self._telemetry
-        if tel is not None and tel.enabled:
-            return tel.span(name)
-        return _NULL_SPAN
-
     # -- the WeightStore interface -------------------------------------------
     def push(self, update: NodeUpdate) -> None:
         self._push_seq += 1
@@ -1219,15 +1210,19 @@ class ShardedWeightStore:
         self._store(group).push(update)
         # the outer "gossip" span is the dashboard's phase; the l<k> sub-spans
         # show where summary time goes per level
-        with self._span("gossip"):
-            with self._span("gossip.l0.refresh"):
+        with child_span("gossip", self._telemetry):
+            with child_span("gossip.l0.refresh", self._telemetry):
                 self._refresh_summary(group)
-            with self._span("gossip.l0.forward"):
+            with child_span("gossip.l0.forward", self._telemetry):
                 self._forward(group)
             if self.levels > 1:
                 self._tier_work(group)
 
     def state_hash(self, exclude_node: str | None = None) -> str:
+        with child_span("state_hash", self._telemetry):
+            return self._state_hash(exclude_node)
+
+    def _state_hash(self, exclude_node: str | None) -> str:
         """O(group-folder keys): only the caller's home folder is hashed. The
         caller's own deposits AND its own group's summary (which its push just
         refreshed) are excluded, so Algorithm 1's skip check survives; foreign

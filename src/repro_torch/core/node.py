@@ -201,18 +201,18 @@ class _BaseNode:
             self.on_step(self, aggregated)
         return aggregated
 
-    def _aggregate(self, own: NodeUpdate, peers: list) -> PyTree:
-        """The strategy's aggregate, in the ``aggregate`` span. With telemetry
-        on, the kernel launches the strategy reports for it count as
-        ``kernel.<name>`` before the round's obs flush (a node in a child
-        process reports them there: the parent's counters never see a
-        child's)."""
+    def _aggregate(self, own: NodeUpdate, peers: list, round_id: int) -> PyTree:
+        """The strategy's aggregate, in the ``aggregate`` span of round
+        ``round_id``. With telemetry on, the kernel launches the strategy
+        reports for it count as ``kernel.<name>`` before the round's obs
+        flush (a node in a child process reports them there: the parent's
+        counters never see a child's)."""
         tel = self.telemetry
         if not tel.enabled:
             return self.strategy.aggregate(own, peers)
         launches = getattr(self.strategy, "launches", {})
         before = dict(launches)
-        with tel.span("aggregate"):
+        with tel.span("aggregate", trace=round_id):
             aggregated = self.strategy.aggregate(own, peers)
         for name, n in launches.items():
             if n > before.get(name, 0):
@@ -250,12 +250,15 @@ class AsyncFederatedNode(_BaseNode):
         ``None`` when no peer weights are available / store unchanged (the
         caller keeps training on its current weights — Algorithm 1's 'resume
         training' branch)."""
+        # the round's spans (and the store spans under them) share its counter
+        # as their trace id
         tel = self.telemetry
-        with tel.span("push"):
+        round_id = self.counter
+        with tel.span("push", trace=round_id):
             own = self._push(params, num_examples, metrics)
         self.counter += 1
 
-        with tel.span("pull"):
+        with tel.span("pull", trace=round_id):
             state = self.store.state_hash(exclude_node=self.node_id)
             if state == self._last_state_hash:
                 # Only our own deposit changed nothing relative to what we
@@ -280,7 +283,7 @@ class AsyncFederatedNode(_BaseNode):
             # far behind our own counter each pulled peer update is.
             for u in peers:
                 tel.observe_staleness(own.counter - u.counter)
-        aggregated = self._aggregate(own, peers)
+        aggregated = self._aggregate(own, peers, round_id)
         self.num_aggregations += 1
         if self.persist_strategy_state:
             self._persist_strategy_state()
@@ -321,16 +324,16 @@ class SyncFederatedNode(_BaseNode):
         self, params: PyTree, num_examples: int, metrics: dict | None = None
     ) -> PyTree:
         tel = self.telemetry
-        with tel.span("push"):
-            own = self._push(params, num_examples, metrics)
         round_id = self.counter
+        with tel.span("push", trace=round_id):
+            own = self._push(params, num_examples, metrics)
         self.counter += 1
 
         # The injected clock drives the deadline, not time.monotonic():
         # simulated-clock tests of timeout behavior (and virtual-time
         # harnesses) must be able to age the barrier without real sleeping.
         deadline = self.clock() + self.timeout
-        with tel.span("pull"):
+        with tel.span("pull", trace=round_id):
             while True:
                 peers = self.store.pull_round(round_id, exclude=self.node_id)
                 self.num_pulls += 1
@@ -347,7 +350,7 @@ class SyncFederatedNode(_BaseNode):
                 tel.observe_staleness(own.counter - u.counter)
         # Deterministic aggregation order across clients → identical results.
         peers.sort(key=lambda u: u.node_id)
-        aggregated = self._aggregate(own, peers)
+        aggregated = self._aggregate(own, peers, round_id)
         self.num_aggregations += 1
         if self.persist_strategy_state:
             self._persist_strategy_state()

@@ -45,6 +45,7 @@ from .serialize import (
     serialize_obs_blob,
     serialize_strategy_state,
 )
+from .telemetry import child_span
 from .transport import (
     _LruCache,
     Prefetcher,
@@ -727,8 +728,10 @@ class WeightStore:
 
     # -- observability blobs --------------------------------------------------
     def attach_telemetry(self, telemetry) -> None:
-        """Route this store's folder round-trips and codec work through a
-        ``Telemetry`` instance (put/get/encode/decode spans)."""
+        """Record this store's folder round-trips, codec work and state hashes
+        (put/get/encode/decode/state_hash spans) into a ``Telemetry`` where no
+        span is open on the calling thread; under an open span they are its
+        children in the span's own Telemetry."""
         self._ctx.telemetry = telemetry
 
     def push_obs(self, node_id: str, seq: int, payload: dict, *,
@@ -788,7 +791,8 @@ class WeightStore:
                 "fleet/",
                 "obs/",
             )
-        return self.folder.state_hash(exclude=exclude)
+        with child_span("state_hash", self._ctx.telemetry):
+            return self.folder.state_hash(exclude=exclude)
 
     # -- pull ---------------------------------------------------------------
     def node_ids(self) -> list[str]:

@@ -35,6 +35,7 @@ from repro_torch.kernels import resolve_device
 from repro_torch.kernels.fed_agg import ops as fed_agg_ops
 
 from .serialize import NodeUpdate
+from .telemetry import child_span
 from .tree import LeafSpec, PyTree, tree_leaves, tree_unflatten
 
 # Stack rows start on 128-byte boundaries, so the kernel reads them as float4
@@ -117,7 +118,11 @@ class Strategy(ABC):
         return spec
 
     def _stacked(self, spec: LeafSpec, updates: Sequence[NodeUpdate]) -> torch.Tensor:
-        return self._stack.stack(spec, updates)
+        """The (K, N) stack, in an ``aggregate.stack`` span under the caller's
+        open span (the node's ``aggregate``). Its rows go up from pageable host
+        memory, so the span holds their copies to the card."""
+        with child_span("aggregate.stack"):
+            return self._stack.stack(spec, updates)
 
     def _buffer(self, name: str, spec: LeafSpec) -> torch.Tensor:
         """Named warm device vector (never escapes unless ``reuse_output``)."""
@@ -141,8 +146,11 @@ class Strategy(ABC):
                  out: torch.Tensor | None = None) -> torch.Tensor:
         """Σ_k coeffs[k]·stacked[k] — THE aggregation primitive: one ``fed_agg``
         launch on the card, the plain version on the CPU. The coefficients need
-        not be normalized (FedAsync's lerp chain shares this code)."""
-        result = fed_agg_ops.aggregate_flat(stacked, coeffs, out=out)
+        not be normalized (FedAsync's lerp chain shares this code). Its
+        ``aggregate.combine`` span times the launch as the host issues it: the
+        card finishes later."""
+        with child_span("aggregate.combine"):
+            result = fed_agg_ops.aggregate_flat(stacked, coeffs, out=out)
         if stacked.is_cuda:
             self.launches["fed_agg"] += 1
         return result
@@ -252,11 +260,12 @@ class _FedOpt(Strategy):
             self.m = torch.zeros_like(self.x)
             self.v = torch.zeros_like(self.x)
         if self.use_kernel or stacked.is_cuda:
-            self.x, self.m, self.v = fed_agg_ops.fed_opt_flat(
-                stacked, coeffs, self.x, self.m, self.v,
-                variant=self.variant, server_lr=self.server_lr,
-                beta1=self.beta1, beta2=self.beta2, tau=self.tau,
-            )
+            with child_span("aggregate.combine"):
+                self.x, self.m, self.v = fed_agg_ops.fed_opt_flat(
+                    stacked, coeffs, self.x, self.m, self.v,
+                    variant=self.variant, server_lr=self.server_lr,
+                    beta1=self.beta1, beta2=self.beta2, tau=self.tau,
+                )
             if stacked.is_cuda:
                 self.launches["fed_opt"] += 1
             # fresh state that nothing aliases; next round replaces (never

@@ -1,24 +1,41 @@
-"""Store-native observability: spans, counters, and ``obs/`` blob rollups.
+"""Store-native observability: spans, counters, and ``obs/`` blob rollups (the
+port of ``repro.core.telemetry``).
 
 There is no server to scrape, so there is no server to hold metrics either —
 telemetry rides the shared folder as its own blob family (``obs/<node>/<seq>``,
 the ``obs_of`` envelope in serialize.py), excluded from ``state_hash`` exactly
 like ``fleet/`` control blobs, and any peer can assemble the fleet-wide
-picture read-only (``python -m repro.obs watch``/``trace``).
+picture read-only (``python -m repro_torch.obs watch``/``trace``).
 
 Two layers, no dependencies beyond the stdlib:
 
   * ``SpanRecorder`` — a monotonic-clock flight recorder: ``with rec.span("pull")``
-    records ``(name, t0, dur)`` into a bounded ring (old events drop, a counter
+    records one ``SpanRecord`` into a bounded ring (old events drop, a counter
     remembers how many) and folds every span into cumulative per-phase
     aggregates (count/total/min/max) that never grow.
   * ``Telemetry`` — the per-node aggregator. Nodes, the store context, codecs,
-    the trainer, and gossip all call ``tel.span(...)`` / ``tel.observe_staleness``
-    through it; every ``flush_every`` rounds ``snapshot()`` packages phase
-    latencies, the staleness distribution (the FedAsync signal), bytes-per-round
-    and chain depth deltas from ``PipelineStats``, prefetch hit rate, trainer
-    throughput, and the drained span ring into one JSON-safe payload for
+    the strategies, the trainer, the serving node and gossip all record through
+    it; every ``flush_every`` rounds ``snapshot()`` packages phase latencies,
+    the staleness distribution (the FedAsync signal), bytes-per-round and chain
+    depth deltas from ``PipelineStats``, prefetch hit rate, trainer throughput,
+    and the drained span ring into one JSON-safe payload for
     ``WeightStore.push_obs``.
+
+A span record is a tree node: its name, start and duration on the clock, the
+recording thread (``threading.get_ident()``), its own id, its parent's id (0
+for a root) and a trace id. The parent is the innermost span open on the same
+thread in the same recorder; the open spans live on one thread-local stack,
+touched only while telemetry is enabled. The trace id is what spans of one
+unit of work share: a caller names it on a root (a node's round counter for
+``push``/``pull``/``aggregate``, a serving node's batch number, a deployment's
+counter) and children inherit it; a root that names none takes its own id.
+Code below a span that holds no ``Telemetry`` of its own (the store's folder
+round-trips and codecs, a strategy's stack and combine) records through
+``child_span``: into the recorder whose span is innermost on the calling
+thread, as that span's child.
+
+A span times the host. Work the card runs asynchronously is timed as long as
+the host takes to issue it: tracing never adds a host sync.
 
 When disabled, ``span()`` returns a shared no-op context manager and every
 hook is a single attribute check — instrumented code stays on the hot path
@@ -31,15 +48,18 @@ lets ``chrome_trace`` merge rings from different nodes onto one timeline.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
 from collections import deque
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 __all__ = [
+    "SpanRecord",
     "SpanRecorder",
     "Telemetry",
+    "child_span",
     "chrome_trace",
     "collect_obs",
     "env_enabled",
@@ -70,22 +90,81 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    __slots__ = ("_recorder", "_name", "_t0")
+class _OpenSpans(threading.local):
+    """The spans open on each thread, innermost last, of every recorder. Only
+    an enabled span creates a thread's stack; a read elsewhere finds None."""
 
-    def __init__(self, recorder: "SpanRecorder", name: str):
+    stack: "list[_Span] | None" = None
+
+
+_open = _OpenSpans()
+
+
+class SpanRecord(NamedTuple):
+    """One recorded span; ``t0`` and ``dur`` in seconds on the recorder's
+    clock, ``thread`` the recording thread's ``threading.get_ident()``."""
+
+    name: str
+    t0: float
+    dur: float
+    thread: int
+    span_id: int
+    parent: int
+    trace: int
+
+
+class _Span:
+    __slots__ = ("_recorder", "_name", "_trace", "t0", "dur", "span_id", "parent", "trace")
+
+    def __init__(self, recorder: "SpanRecorder", name: str, trace: int | None = None):
         self._recorder = recorder
         self._name = name
+        self._trace = trace
 
     def __enter__(self) -> "_Span":
-        self._t0 = self._recorder.clock()
+        rec = self._recorder
+        stack = _open.stack
+        if stack is None:
+            stack = _open.stack = []
+        parent = None
+        for span in reversed(stack):
+            if span._recorder is rec:
+                parent = span
+                break
+        self.span_id = next(rec._ids)
+        self.parent = parent.span_id if parent is not None else 0
+        if self._trace is not None:
+            self.trace = self._trace
+        else:
+            self.trace = parent.trace if parent is not None else self.span_id
+        stack.append(self)
+        self.t0 = rec.clock()
         return self
 
     def __exit__(self, *exc: object) -> bool:
         rec = self._recorder
-        t0 = self._t0
-        rec.record(self._name, t0, rec.clock() - t0)
+        self.dur = rec.clock() - self.t0
+        stack = _open.stack
+        if stack[-1] is self:
+            stack.pop()
+        else:
+            stack.remove(self)
+        rec.record(self._name, self.t0, self.dur, span_id=self.span_id,
+                   parent=self.parent, trace=self.trace)
         return False
+
+
+def child_span(name: str, fallback: "Telemetry | None" = None):
+    """A span named ``name`` in the recorder whose span is innermost on the
+    calling thread, as that span's child; where no span is open there, a span
+    of ``fallback`` (a Telemetry attached to a store) when it is enabled; else
+    the shared no-op. For code that holds no Telemetry of its own."""
+    stack = _open.stack
+    if stack:
+        return _Span(stack[-1]._recorder, name)
+    if fallback is not None and fallback.enabled:
+        return fallback.span(name)
+    return _NULL_SPAN
 
 
 class SpanRecorder:
@@ -95,7 +174,7 @@ class SpanRecorder:
     ones drop; ``dropped`` counts them), while the per-phase aggregates fold
     every span ever recorded — so latency breakdowns stay exact even when the
     flight recorder wraps. Thread-safe: the node thread, prefetcher thread,
-    and trainer all record into one instance.
+    watcher thread and trainer all record into one instance.
     """
 
     def __init__(self, capacity: int = 2048, *, clock: Callable[[], float] = time.perf_counter):
@@ -103,18 +182,23 @@ class SpanRecorder:
         self.clock = clock
         self.dropped = 0
         self.total_recorded = 0
+        self._ids = itertools.count(1)
         self._lock = threading.Lock()
-        self._events: deque[tuple[str, float, float]] = deque(maxlen=self.capacity)
+        self._events: deque[SpanRecord] = deque(maxlen=self.capacity)
         self._phases: dict[str, list[float]] = {}
 
-    def span(self, name: str) -> _Span:
-        return _Span(self, name)
+    def span(self, name: str, trace: int | None = None) -> _Span:
+        return _Span(self, name, trace)
 
-    def record(self, name: str, t0: float, dur: float) -> None:
+    def record(self, name: str, t0: float, dur: float, *, span_id: int = 0,
+               parent: int = 0, trace: int = 0) -> None:
+        """Record one span that the caller timed (a root, on the calling
+        thread, unless the ids are given)."""
+        event = SpanRecord(name, t0, dur, threading.get_ident(), span_id, parent, trace)
         with self._lock:
             if len(self._events) == self.capacity:
                 self.dropped += 1
-            self._events.append((name, t0, dur))
+            self._events.append(event)
             self.total_recorded += 1
             agg = self._phases.get(name)
             if agg is None:
@@ -127,12 +211,16 @@ class SpanRecorder:
                 if dur > agg[3]:
                     agg[3] = dur
 
-    def drain(self) -> list[tuple[str, float, float]]:
-        """Pop and return the ring's events (aggregates are untouched)."""
+    def drain_records(self) -> list[SpanRecord]:
+        """Pop and return the ring's full records (aggregates are untouched)."""
         with self._lock:
             events = list(self._events)
             self._events.clear()
         return events
+
+    def drain(self) -> list[tuple[str, float, float]]:
+        """Pop and return the ring's events as ``(name, t0, dur)``."""
+        return [(e.name, e.t0, e.dur) for e in self.drain_records()]
 
     def phase_stats(self) -> dict[str, dict[str, float]]:
         with self._lock:
@@ -194,11 +282,13 @@ class Telemetry:
 
     # -- recording hooks (hot path) ------------------------------------
 
-    def span(self, name: str):
-        """Context manager timing one phase; shared no-op when disabled."""
+    def span(self, name: str, trace: int | None = None):
+        """Context manager timing one phase, as a child of the span open
+        innermost on this thread in this Telemetry; shared no-op when
+        disabled. ``trace`` names the unit of work (children inherit it)."""
         if not self.enabled:
             return _NULL_SPAN
-        return self.recorder.span(name)
+        return _Span(self.recorder, name, trace)
 
     def count(self, name: str, n: float = 1) -> None:
         if not self.enabled:
@@ -295,10 +385,10 @@ class Telemetry:
         """
         now_unix = time.time()
         transport = dict(transport_stats or {})
-        events = self.recorder.drain()
         spans = [
-            [name, self._to_unix_us(t0), int(round(dur * 1e6))]
-            for name, t0, dur in events
+            [e.name, self._to_unix_us(e.t0), int(round(e.dur * 1e6)), e.thread, e.span_id,
+             e.parent, e.trace]
+            for e in self.recorder.drain_records()
         ]
         with self._lock:
             counters = dict(self._counters)
@@ -490,7 +580,10 @@ def chrome_trace(obs_by_node: dict[str, list[dict[str, Any]]]) -> dict[str, Any]
     Each node becomes a process (integer pid + a ``process_name`` metadata
     event); spans become ``ph: "X"`` complete events with wall-clock-anchored
     microsecond timestamps, so Perfetto / chrome://tracing lays the whole
-    fleet on one timeline.
+    fleet on one timeline. Each recording thread of a node gets its own
+    ``tid`` (0, 1, ... in order of first appearance), and a span's ids ride
+    as ``args`` (``span``, ``parent``, ``trace``). Spans of payloads that
+    carry no thread (``[name, ts, dur]``) all land on ``tid`` 0.
     """
     events: list[dict[str, Any]] = []
     for pid, (node_id, payloads) in enumerate(sorted(obs_by_node.items())):
@@ -503,18 +596,22 @@ def chrome_trace(obs_by_node: dict[str, list[dict[str, Any]]]) -> dict[str, Any]
                 "args": {"name": node_id or f"node{pid}"},
             }
         )
+        tids: dict[int, int] = {}
         for payload in payloads:
             for span in payload.get("spans") or []:
                 name, ts_us, dur_us = span[0], int(span[1]), int(span[2])
-                events.append(
-                    {
-                        "name": str(name),
-                        "cat": "repro",
-                        "ph": "X",
-                        "ts": ts_us,
-                        "dur": max(0, dur_us),
-                        "pid": pid,
-                        "tid": 0,
-                    }
-                )
+                event = {
+                    "name": str(name),
+                    "cat": "repro",
+                    "ph": "X",
+                    "ts": ts_us,
+                    "dur": max(0, dur_us),
+                    "pid": pid,
+                    "tid": 0,
+                }
+                if len(span) >= 7:
+                    event["tid"] = tids.setdefault(int(span[3]), len(tids))
+                    event["args"] = {"span": int(span[4]), "parent": int(span[5]),
+                                     "trace": int(span[6])}
+                events.append(event)
     return {"traceEvents": events, "displayTimeUnit": "ms"}

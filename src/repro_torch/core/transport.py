@@ -62,6 +62,7 @@ from .serialize import (
     serialize_update_delta_from_flat,
     serialize_update_quantized,
 )
+from .telemetry import child_span
 from .tree import LeafSpec, tree_size_bytes
 from repro_torch.logs import get_logger
 
@@ -447,7 +448,10 @@ class StoreContext:
                  decoded_base_entries: int = 32):
         self.folder = folder
         self.stats = stats
-        # attached by the owning store (``attach_telemetry``)
+        # attached by the owning store (``attach_telemetry``): its spans take
+        # the folder round-trips and codec work done where no span is open on
+        # the calling thread (a prefetch thread); under an open span they are
+        # that span's children (``telemetry.child_span``)
         self.telemetry = None
         # interned LeafSpecs: one per decoded structure
         self.specs: dict = {}
@@ -457,20 +461,12 @@ class StoreContext:
         self.decoded_bases = _LruCache(decoded_base_entries)
 
     def put(self, key: str, blob: bytes) -> None:
-        tel = self.telemetry
-        if tel is not None and tel.enabled:
-            with tel.span("put"):
-                self.folder.put(key, blob)
-        else:
+        with child_span("put", self.telemetry):
             self.folder.put(key, blob)
         self.stats.incr("bytes_written", len(blob))
 
     def get(self, key: str) -> bytes | None:
-        tel = self.telemetry
-        if tel is not None and tel.enabled:
-            with tel.span("get"):
-                blob = self.folder.get(key)
-        else:
+        with child_span("get", self.telemetry):
             blob = self.folder.get(key)
         if blob is not None:
             self.stats.incr("bytes_read", len(blob))
@@ -1082,11 +1078,8 @@ class TransportPipeline:
     # -- write side ----------------------------------------------------------
     def push(self, update: NodeUpdate, ctx: StoreContext) -> tuple[bytes, bool]:
         self.stats.incr("encodes")
-        tel = ctx.telemetry
-        if tel is not None and tel.enabled:
-            with tel.span("encode"):
-                return self.policy.encode(update, ctx)
-        return self.policy.encode(update, ctx)
+        with child_span("encode", ctx.telemetry):
+            return self.policy.encode(update, ctx)
 
     def encode_history(self, update: NodeUpdate) -> bytes:
         """Self-contained (and, for lossy policies, exact) history blob."""
@@ -1106,11 +1099,8 @@ class TransportPipeline:
         cannot be resolved yet (the caller refetches: the writer is
         mid-rebase or mid-GC)."""
         self.stats.incr("decodes")
-        tel = ctx.telemetry
-        if tel is not None and tel.enabled:
-            with tel.span("decode"):
-                return self._decode(blob, node_id, ctx)
-        return self._decode(blob, node_id, ctx)
+        with child_span("decode", ctx.telemetry):
+            return self._decode(blob, node_id, ctx)
 
     def _decode(self, blob: bytes, node_id: str, ctx: StoreContext) -> NodeUpdate | None:
         raw = blob

@@ -10,9 +10,16 @@ A build happens once per process under a ``threading.Lock`` (threaded
 federation clients can reach their first aggregation at the same moment) and
 once per build directory under a file lock (several processes may share one
 checkout).
+
+Each wrapper launches its kernel inside a ``torch.profiler.record_function``
+range named ``kernel.<op>`` while a profiler runs (``NO_RANGE`` otherwise: one
+flag check), so a trace names the op's device time whatever kernel implements
+it. A range holds one launch and nothing else, so its device projection never
+covers idle time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -30,6 +37,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # each kernel's registers and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+NO_RANGE = contextlib.nullcontext()  # the launches' range while no profiler runs
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -136,9 +136,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tens
         raise ValueError(f"n_split must be in 1..{MAX_SPLIT}, got {n_split}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            B, C, KV, G, hd, DTYPES[q.dtype], n_split, 1.0 / math.sqrt(hd), stream)
+        with (torch.profiler.record_function("kernel.decode_attention")
+              if torch.autograd._profiler_enabled() else _build.NO_RANGE):
+            err = lib.repro_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                B, C, KV, G, hd, DTYPES[q.dtype], n_split, 1.0 / math.sqrt(hd), stream)
     _build.check_launch(err, "decode_attention")
     with _launch_lock:
         LAUNCHES["decode_attention"] += 1

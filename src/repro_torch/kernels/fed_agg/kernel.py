@@ -88,8 +88,10 @@ def fed_agg(stacked: torch.Tensor, weights: torch.Tensor, *,
     lib = _lib()
     with torch.cuda.device(stacked.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_fed_agg(stacked.data_ptr(), ld, weights.data_ptr(), out.data_ptr(),
-                                k, n, _vec(ld, stacked, out), stream)
+        with (torch.profiler.record_function("kernel.fed_agg")
+              if torch.autograd._profiler_enabled() else _build.NO_RANGE):
+            err = lib.repro_fed_agg(stacked.data_ptr(), ld, weights.data_ptr(), out.data_ptr(),
+                                    k, n, _vec(ld, stacked, out), stream)
     _build.check_launch(err, "fed_agg")
     _count("fed_agg")
     return out
@@ -118,11 +120,13 @@ def fed_opt(stacked: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(stacked.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_fed_opt(
-            stacked.data_ptr(), ld, weights.data_ptr(), x.data_ptr(), m.data_ptr(),
-            v.data_ptr(), xo.data_ptr(), mo.data_ptr(), vo.data_ptr(), k, n,
-            VARIANTS[variant], float(lr), float(b1), 1.0 - float(b1), float(b2),
-            1.0 - float(b2), float(tau), _vec(ld, stacked, x, m, v, xo, mo, vo), stream)
+        with (torch.profiler.record_function("kernel.fed_opt")
+              if torch.autograd._profiler_enabled() else _build.NO_RANGE):
+            err = lib.repro_fed_opt(
+                stacked.data_ptr(), ld, weights.data_ptr(), x.data_ptr(), m.data_ptr(),
+                v.data_ptr(), xo.data_ptr(), mo.data_ptr(), vo.data_ptr(), k, n,
+                VARIANTS[variant], float(lr), float(b1), 1.0 - float(b1), float(b2),
+                1.0 - float(b2), float(tau), _vec(ld, stacked, x, m, v, xo, mo, vo), stream)
     _build.check_launch(err, "fed_opt")
     _count("fed_opt")
     return xo, mo, vo

@@ -90,9 +90,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, KV, G, hd,
-            int(window), 1.0 / math.sqrt(hd), stream)
+        with (torch.profiler.record_function("kernel.flash_attention")
+              if torch.autograd._profiler_enabled() else _build.NO_RANGE):
+            err = getattr(lib, ENTRY[q.dtype])(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, KV, G, hd,
+                int(window), 1.0 / math.sqrt(hd), stream)
     _build.check_launch(err, "flash_attention")
     with _launch_lock:
         LAUNCHES["flash_attention"] += 1

@@ -183,13 +183,15 @@ def _launch(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tenso
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_ssd_scan(
-            x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-            None if initial_state is None else initial_state.data_ptr(), state_out.data_ptr(),
-            B, H, S, P, N, int(chunk),
-            x.stride(0), x.stride(1), x.stride(2), y.stride(0), y.stride(1), y.stride(2),
-            dA.stride(0), dA.stride(1), dA.stride(2), *bc_strides,
-            DTYPES[x.dtype], cluster or 1, stream)  # (f32 reads no cluster size)
+        with (torch.profiler.record_function("kernel.ssd_scan")
+              if torch.autograd._profiler_enabled() else _build.NO_RANGE):
+            err = lib.repro_ssd_scan(
+                x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                None if initial_state is None else initial_state.data_ptr(), state_out.data_ptr(),
+                B, H, S, P, N, int(chunk),
+                x.stride(0), x.stride(1), x.stride(2), y.stride(0), y.stride(1), y.stride(2),
+                dA.stride(0), dA.stride(1), dA.stride(2), *bc_strides,
+                DTYPES[x.dtype], cluster or 1, stream)  # (f32 reads no cluster size)
     _build.check_launch(err, "ssd_scan")
     with _launch_lock:
         LAUNCHES["ssd_scan"] += 1

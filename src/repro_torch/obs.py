@@ -1,8 +1,9 @@
 """``python -m repro_torch.obs`` — the serverless observability CLI (the port
-of ``python -m repro.obs``; it reads stores that either package wrote).
+of the reference's ``python -m repro.obs``; it reads stores that either
+package wrote).
 
 Fleet telemetry lives in the store itself (``obs/<node>/<seq>`` blobs each
-node deposits; see ``repro.core.telemetry``), so the dashboard is just a
+node deposits; see ``repro_torch.core.telemetry``), so the dashboard is just a
 reader — coordinator-free, runnable from any host that can see the mount,
 and adding nothing to the data path::
 
@@ -12,12 +13,16 @@ and adding nothing to the data path::
 
 ``watch`` prints a per-node table: round rate, update staleness (the FedAsync
 signal), bytes moved, round-phase latencies, and flags stragglers (round rate
-under half the fleet median). Serving-tier nodes (``repro_torch.api.serve``) show up
-in their own SERVE table — deploys, tokens/sec, rounds-behind-store staleness,
-swap-latency percentiles — fed purely from the same store blobs. ``trace`` merges every node's span ring into
-one Chrome trace-event JSON — open it at https://ui.perfetto.dev (or
-chrome://tracing) to see the fleet's pull/decode/aggregate/encode/push/train
-phases on a single timeline.
+under half the fleet median). Serving-tier nodes (``repro_torch.api.serve``)
+show up in their own SERVE table — deploys, tokens/sec, rounds-behind-store
+staleness, swap-latency percentiles — fed purely from the same store blobs.
+``trace`` merges every node's span ring into one Chrome trace-event JSON —
+open it at https://ui.perfetto.dev (or chrome://tracing) to see the fleet's
+phases on a single timeline: each node a process, each of its recording
+threads (trainer, prefetcher, serving watcher) its own track, and each span's
+id, parent id and trace id (the round, batch or deployment it belongs to) as
+its ``args``. Spans time the host: work the card runs asynchronously shows as
+long as the host took to issue it.
 """
 from __future__ import annotations
 

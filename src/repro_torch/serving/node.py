@@ -32,9 +32,18 @@ cache is placed with ``serve_cache_shardings`` (batch on the data axes, heads
 on "model"), prompts with ``shard_batch``, and the greedy tokens come back
 whole on every rank.
 
-Telemetry spans ``serve.prefill`` / ``serve.decode`` / ``serve.swap`` plus a
+Telemetry spans ride ``obs/`` blobs like every trainer's metrics do, beside a
 ``serve`` SLO dict (swap-latency percentiles, staleness-in-rounds, token
-throughput) ride ``obs/`` blobs like every trainer's metrics do.
+throughput). On the request thread, one trace a batch (its number):
+``serve.prefill`` and ``serve.decode`` (one a token), each ended by a host
+sync, with a child ``serve.prefill.issue`` / ``serve.decode.issue`` from its
+start to that sync, which is how long the host takes to issue the step's
+work. On the watcher thread: ``serve.poll`` (the store's ``get``/``decode``
+below it) and ``serve.swap`` (trace: the deployment's counter) with children
+``serve.swap.stage`` (the host buffer), ``serve.swap.wait`` (a batch still on
+the standby leaves) and ``serve.swap.write`` (the chunked device writes and
+their pauses). The node never attaches its Telemetry to the store: the store's
+spans are children of the node's open span on the calling thread.
 """
 from __future__ import annotations
 
@@ -196,8 +205,6 @@ class ServingNode:
             self.telemetry = telemetry
         else:
             self.telemetry = Telemetry(self.node_id, enabled=telemetry)
-        if self.telemetry.enabled and hasattr(store, "attach_telemetry"):
-            store.attach_telemetry(self.telemetry)
 
         shapes = self.model.abstract()
         self.spec = LeafSpec.of(shapes)
@@ -229,10 +236,10 @@ class ServingNode:
         self._lock = threading.Lock()
         self._swaps = 0
         self._requests = 0
+        self._batches = 0  # batches begun: each batch's trace id
         self._tokens = 0
         self._serve_seconds = 0.0
         self._swap_ms: list[float] = []
-        self._swap_log: list[tuple[float, float]] = []  # (t0, t1) monotonic
         self._stale_recent: list[float] = []
 
         self._stop = threading.Event()
@@ -302,16 +309,19 @@ class ServingNode:
         """Decode ``dep`` into the standby buffer, write it into the standby
         device leaves, and publish them. Runs off the request path;
         ``generate`` never blocks on this."""
+        tel = self.telemetry
         t0 = self._clock()
-        with self.telemetry.span("serve.swap"):
+        with tel.span("serve.swap", trace=dep.counter):
             idx = self._standby
             buf = self._buffers[idx]
-            if dep.flat is not None:
-                np.copyto(buf, dep.flat)
-            else:
-                self.spec.flatten_into(dep.params, buf)
+            with tel.span("serve.swap.stage"):
+                if dep.flat is not None:
+                    np.copyto(buf, dep.flat)
+                else:
+                    self.spec.flatten_into(dep.params, buf)
             if self._shardings is not None:
-                tree, buf_index = self._materialize_on_mesh(buf), None
+                with tel.span("serve.swap.write"):
+                    tree, buf_index = self._materialize_on_mesh(buf), None
             else:
                 tree, buf_index = self._materialize_chunked(idx, buf), idx
             # publish: one reference flip; in-flight batches keep their
@@ -324,8 +334,6 @@ class ServingNode:
             self._swaps += 1
             self._swap_ms.append((t1 - t0) * 1e3)
             del self._swap_ms[:-_SLO_WINDOW]
-            self._swap_log.append((t0, t1))
-            del self._swap_log[:-_SLO_WINDOW]
         self.telemetry.count("serve.swaps")
         self._deployed_event.set()
 
@@ -348,7 +356,8 @@ class ServingNode:
         # the in-place writes would tear a batch still decoding on this
         # buffer's previous leaves — wait for it to drain (the OTHER buffer
         # stays live the whole time; new batches snapshot that one)
-        with self._buf_cv:
+        tel = self.telemetry
+        with tel.span("serve.swap.wait"), self._buf_cv:
             drained = self._buf_cv.wait_for(
                 lambda: self._buf_refs[idx] == 0, timeout=_SWAP_DRAIN_TIMEOUT_S)
         leaves = self._dev_leaves[idx] if drained else None
@@ -360,17 +369,18 @@ class ServingNode:
         if self._copier is None:
             self._copier = _ChunkCopier(self.device)
         copier = self._copier
-        copier.begin()
-        last = len(leaves) - 1
-        for i, leaf in enumerate(leaves):
-            o, n = int(self.spec.offsets[i]), int(self.spec.sizes[i])
-            flat = leaf.view(-1)
-            for pos in range(0, n, _SWAP_CHUNK):
-                m = min(_SWAP_CHUNK, n - pos)
-                copier.copy(flat[pos:pos + m], buf[o + pos:o + pos + m])
-                if pos + m < n or i < last:
-                    time.sleep(_SWAP_PAUSE_S)
-        copier.finish()
+        with tel.span("serve.swap.write"):
+            copier.begin()
+            last = len(leaves) - 1
+            for i, leaf in enumerate(leaves):
+                o, n = int(self.spec.offsets[i]), int(self.spec.sizes[i])
+                flat = leaf.view(-1)
+                for pos in range(0, n, _SWAP_CHUNK):
+                    m = min(_SWAP_CHUNK, n - pos)
+                    copier.copy(flat[pos:pos + m], buf[o + pos:o + pos + m])
+                    if pos + m < n or i < last:
+                        time.sleep(_SWAP_PAUSE_S)
+            copier.finish()
         self._dev_leaves[idx] = leaves
         return tree_unflatten(self.spec.treedef, leaves)
 
@@ -388,8 +398,9 @@ class ServingNode:
         prompts: (B, S) int → ((B, new_tokens) int32 continuations, meta).
         The active weight set is snapshotted once at batch start — a swap
         landing mid-batch does not affect this batch. ``on_token`` (if set)
-        is called after each generated token with its index; meta carries
-        per-token decode spans on the node's monotonic clock for SLO math.
+        is called after each generated token with its index; meta names the
+        weight set that served the batch (``source``, ``counter``). Its times
+        are the node's spans (one trace a batch).
         """
         # snapshot + in-flight increment under one lock: once the watcher
         # sees a zero refcount for the standby buffer, no new batch can
@@ -420,21 +431,23 @@ class ServingNode:
             prompts = shard_batch({"tokens": prompts}, self.mesh,
                                   batch_axes=data_axes(self.mesh))["tokens"]
             cache = distribute(cache, serve_cache_shardings(cache, self.mesh))
+        tel = self.telemetry
+        with self._lock:
+            self._batches += 1
+            batch_no = self._batches
         t_start = self._clock()
-        with self.telemetry.span("serve.prefill"):
-            tok, cache = self._prefill(dep.params, prompts, cache)
+        with tel.span("serve.prefill", trace=batch_no):
+            with tel.span("serve.prefill.issue"):
+                tok, cache = self._prefill(dep.params, prompts, cache)
             _sync(tok)
-        t_prefill = self._clock()
         toks = [tok]
-        decode_spans: list[tuple[float, float]] = []
         if on_token is not None:
             on_token(0)
         for t in range(1, new_tokens):
-            ts = self._clock()
-            with self.telemetry.span("serve.decode"):
-                tok, cache = self._serve_step(dep.params, tok, cache, S - 1 + t)
+            with tel.span("serve.decode", trace=batch_no):
+                with tel.span("serve.decode.issue"):
+                    tok, cache = self._serve_step(dep.params, tok, cache, S - 1 + t)
                 _sync(tok)
-            decode_spans.append((ts, self._clock()))
             toks.append(tok)
             if on_token is not None:
                 on_token(t)
@@ -446,24 +459,13 @@ class ServingNode:
             self._serve_seconds += t_end - t_start
         self.telemetry.count("serve.requests")
         self.telemetry.count("serve.tokens", n_tokens)
-        meta = {
-            "source": dep.source,
-            "counter": dep.counter,
-            "prefill_s": t_prefill - t_start,
-            "decode_spans": decode_spans,
-            "batch_span": (t_start, t_end),
-        }
+        meta = {"source": dep.source, "counter": dep.counter}
         out = torch.stack(toks, dim=1)
         if is_dtensor(out):
             out = out.full_tensor()
         return out.cpu().numpy(), meta
 
     # -- SLOs / observability -------------------------------------------
-
-    def swap_log(self) -> list[tuple[float, float]]:
-        """Recent (start, end) swap intervals on the node's monotonic clock."""
-        with self._lock:
-            return list(self._swap_log)
 
     def stats(self) -> dict:
         """Serving SLO rollup — also the ``serve`` dict in obs payloads."""

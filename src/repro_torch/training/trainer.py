@@ -19,6 +19,7 @@ from typing import Any, Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.tree import (
     PyTree, as_tensor, torch_dtype, tree_flatten_with_path, tree_leaves, tree_map,
     tree_structure, tree_to_numpy, tree_unflatten,
@@ -28,6 +29,8 @@ from repro_torch.optim import Optimizer, apply_updates
 
 # loss_fn(params, batch, generator) -> (loss, metrics dict of 0-d tensors)
 LossFn = Callable[[PyTree, Any, torch.Generator], tuple[torch.Tensor, dict]]
+
+_NO_TELEMETRY = Telemetry(enabled=False)  # every span() the shared no-op
 
 
 @dataclass
@@ -57,14 +60,21 @@ def value_and_grad(loss_fn: Callable, params: PyTree, *args) -> tuple[tuple, PyT
     return (loss.detach(), metrics), tree_unflatten(treedef, grads)
 
 
-def make_train_step(loss_fn: LossFn, optimizer: Optimizer):
+def make_train_step(loss_fn: LossFn, optimizer: Optimizer, telemetry: Telemetry | None = None):
     """(params, opt_state, batch, rng) -> (params, opt_state, metrics). The
-    parameter and moment tensors are updated in place and returned."""
+    parameter and moment tensors are updated in place and returned. With a
+    ``telemetry``, the gradient and the update are spans ``train.grad`` and
+    ``train.update``; on the card each times how long the host takes to issue
+    its work (no span waits for the card)."""
+    if telemetry is None:
+        telemetry = _NO_TELEMETRY
 
     def train_step(params, opt_state, batch, rng):
-        (loss, metrics), grads = value_and_grad(loss_fn, params, batch, rng)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+        with telemetry.span("train.grad"):
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch, rng)
+        with telemetry.span("train.update"):
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
         return params, opt_state, {**metrics, "loss": loss}
 
     return train_step
@@ -95,7 +105,10 @@ class Trainer:
 
         ``slowdown``: artificial seconds of sleep per step (straggler
         experiments). ``telemetry``: an optional ``Telemetry``; each
-        ``run_epoch`` then records a ``train`` span."""
+        ``run_epoch`` then records a ``train`` span, ended by the epoch's
+        single host sync, with a ``train.step`` child a step (children
+        ``train.input``, ``train.grad``, ``train.update``). A step's spans
+        time the host issuing its work: on the card they end before it does."""
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -108,7 +121,7 @@ class Trainer:
         self.slowdown = slowdown
         self.rng = torch.Generator().manual_seed(seed)  # handed to loss_fn
         self.rng_py = _random.Random(seed)
-        self._train_step = make_train_step(loss_fn, optimizer)
+        self._train_step = make_train_step(loss_fn, optimizer, telemetry)
         self.log: list[dict] = []
         self.crashed = False
 
@@ -137,17 +150,27 @@ class Trainer:
 
     # -- core loop ------------------------------------------------------------
     def run_epoch(self, batches: Iterable, steps: int | None = None) -> dict:
+        tel = self.telemetry
+        if tel is None or not tel.enabled:
+            return self._run_epoch(batches, steps, _NO_TELEMETRY)[0]
+        with tel.span("train") as span:  # closed after the epoch's host sync
+            logs, count = self._run_epoch(batches, steps, tel)
+        tel.note_train(count, span.dur)
+        return logs
+
+    def _run_epoch(self, batches: Iterable, steps: int | None, tel: Telemetry) -> tuple[dict, int]:
         # Metrics stay on the device for the whole epoch: a per-step
         # float(v) would wait on each step. One host copy at the end.
-        tel = self.telemetry
-        t_epoch = tel.clock() if tel is not None and tel.enabled else None
         step_metrics: list[torch.Tensor] = []
         names: list[str] = []
         for i, batch in enumerate(batches):
             if steps is not None and i >= steps:
                 break
-            self.params, self.opt_state, metrics = self._train_step(
-                self.params, self.opt_state, self._to_device(batch), self.rng)
+            with tel.span("train.step"):
+                with tel.span("train.input"):
+                    batch = self._to_device(batch)
+                self.params, self.opt_state, metrics = self._train_step(
+                    self.params, self.opt_state, batch, self.rng)
             if self.slowdown:
                 time.sleep(self.slowdown)
             self.step += 1
@@ -156,12 +179,7 @@ class Trainer:
         count = len(step_metrics)
         sums = (torch.stack(step_metrics).cpu().double().sum(0).tolist()
                 if step_metrics else [])
-        if t_epoch is not None:
-            # one span per epoch, recorded after the epoch's single host sync
-            dur = tel.clock() - t_epoch
-            tel.recorder.record("train", t_epoch, dur)
-            tel.note_train(count, dur)
-        return {k: v / max(1, count) for k, v in zip(names, sums)}
+        return {k: v / max(1, count) for k, v in zip(names, sums)}, count
 
     def fit(
         self,

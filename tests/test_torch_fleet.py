@@ -507,6 +507,11 @@ def test_obs_cli_watch_and_trace(tmp_path, capsys):
     out = tmp_path / "trace.json"
     assert tobs.main(["trace", "--store", store, "--out", str(out)]) == 0
     doc = json.loads(out.read_text())
+    # the reference's trace, with the port's span ids as ``args`` beside it
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert spans and all(set(e["args"]) == {"span", "parent", "trace"} for e in spans)
+    for e in spans:
+        del e["args"]
     assert doc == jtel.chrome_trace(jtel.collect_obs(store))
     assert tobs.main(["watch", "--store", str(tmp_path / "empty"), "--once"]) == 1
 
