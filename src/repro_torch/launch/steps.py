@@ -1,7 +1,9 @@
 """Step builders — the port of ``repro.launch.steps``: ``make_train_step``
 (one optimizer step, optionally over micro-batches), the cache-less
-``make_prefill_step`` probe, and the serving steps ``make_bulk_prefill_step``
-and ``make_serve_step``.
+``make_prefill_step`` probe, the serving steps ``make_bulk_prefill_step``
+and ``make_serve_step``, and ``DecodeGraph``: one serve step captured as a
+CUDA graph, for the models whose step reads no host position
+(``decode_graphable``).
 
 Plain functions on tensors, or on DTensors placed on a mesh (then under
 ``implicit_replication``, ``models.sharded``). The train step updates the
@@ -13,11 +15,12 @@ returned, as the reference's are).
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.models.sharded import mesh_mode, serving_mode, split_dim, unshard
 from repro_torch.optim import Optimizer, adafactor, adamw, apply_updates
@@ -26,6 +29,9 @@ from repro_torch.training.trainer import value_and_grad
 # Models whose optimizer-moment memory would not fit with full Adam on the
 # production mesh use factored moments (Adafactor).
 ADAFACTOR_THRESHOLD = 50_000_000_000
+
+# torch captures one CUDA graph at a time in a process
+_CAPTURE_LOCK = threading.Lock()
 
 
 def default_optimizer(cfg: ModelConfig, approx_params: int | None = None) -> Optimizer:
@@ -128,3 +134,53 @@ def make_serve_step(cfg: ModelConfig, *, window_override: int | None = None) -> 
             return _greedy(cfg, logits), cache
 
     return serve_step
+
+
+def decode_graphable(model, device: torch.device, mesh=None) -> bool:
+    """Whether ``model``'s serve step can be replayed from a CUDA graph: on
+    one card, off a mesh, and with every block ``ssm``, whose decode carries
+    a cache of fixed shape and reads no host position."""
+    return (device.type == "cuda" and mesh is None
+            and all(kind == "ssm" for kind in (*model.pattern, *model.tail)))
+
+
+class DecodeGraph:
+    """One ``make_serve_step`` step of ``batch`` tokens on ``params``,
+    captured as a CUDA graph over static buffers: the input token (B,)
+    int32, a cache shaped as ``model.init_cache(batch)`` and the step's
+    output token. The graph reads the leaves of ``params`` where they lie, so
+    weights written in place are seen by the next replay; its last op copies
+    the output token into the input token, so replays chain with no host
+    work. Only for a model that ``decode_graphable`` admits.
+
+    The capture warms the step up once on a side stream (on the static
+    cache, not yet a batch's), then records it there in ``thread_local``
+    mode, so that other threads may synchronize or allocate meanwhile."""
+
+    def __init__(self, serve_step: Callable, params, model, batch: int, device: torch.device):
+        self.device = device
+        self.token = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.cache = model.init_cache(batch, capacity=1, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(device)
+        with _CAPTURE_LOCK, torch.cuda.device(device):
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                serve_step(params, self.token, self.cache, 0)
+            torch.cuda.current_stream(device).wait_stream(stream)
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                out, _ = serve_step(params, self.token, self.cache, 0)
+                self.token.copy_(out)
+
+    def load(self, token: torch.Tensor, cache) -> None:
+        """Set the static token and cache to a batch's (device copies)."""
+        self.token.copy_(token)
+        for dst, src in zip(tree_leaves(self.cache), tree_leaves(cache)):
+            dst.copy_(src)
+
+    def replay(self) -> torch.Tensor:
+        """One step: the static cache advanced in place; → the static token,
+        now the step's output (clone it before the next replay)."""
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        return self.token

@@ -23,6 +23,19 @@ per staging buffer orders its reuse after its copy. One leaf-sized copy would
 queue ahead of the decode steps and stall in-flight requests; small copies on
 a side stream interleave with them.
 
+On the card, off a mesh, a model whose blocks are all ``ssm`` decodes from
+a CUDA graph (``launch.steps.DecodeGraph``): its step carries a cache of
+fixed shape and reads no host position, so one capture for each (device
+buffer, leaf-set generation, batch size) stays valid across the in-place
+swaps into that buffer, and a step costs one launch where eager dispatch
+issues ~35 aten calls a layer. The prefill runs as before into the batch's
+own cache; after the first token one device copy moves that cache and the
+token into the graph's static buffers, and each later token is one replay.
+A graph serves one batch at a time: a batch that finds it busy decodes
+eagerly. The generation counts fresh allocations of a buffer's leaves (its
+first deploy, or a drain timeout), and a graph of an older one is never
+replayed. Every other model, the CPU and a mesh decode eagerly.
+
 With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``; one ``ServingNode``
 per rank, each fed the same prompts and deploying the same weights), a deploy
 unflattens the standby host buffer and places each leaf with
@@ -38,7 +51,11 @@ throughput). On the request thread, one trace a batch (its number):
 ``serve.prefill`` and ``serve.decode`` (one a token), each ended by a host
 sync, with a child ``serve.prefill.issue`` / ``serve.decode.issue`` from its
 start to that sync, which is how long the host takes to issue the step's
-work. On the watcher thread: ``serve.poll`` (the store's ``get``/``decode``
+work; inside ``serve.decode.issue`` a ``serve.decode.replay`` where the step
+is a graph's replay, and before a batch's first decode a
+``serve.decode.capture`` where its graph is captured then (counters
+``serve.decode.graph``, ``serve.decode.eager``, ``serve.decode.capture``).
+On the watcher thread: ``serve.poll`` (the store's ``get``/``decode``
 below it) and ``serve.swap`` (trace: the deployment's counter) with children
 ``serve.swap.stage`` (the host buffer), ``serve.swap.wait`` (a batch still on
 the standby leaves) and ``serve.swap.write`` (the chunked device writes and
@@ -64,7 +81,12 @@ from repro_torch.data.pipeline import shard_batch
 from repro_torch.kernels import resolve_device
 from repro_torch.launch.mesh import data_axes
 from repro_torch.launch.sharding import distribute, param_shardings, serve_cache_shardings
-from repro_torch.launch.steps import make_bulk_prefill_step, make_serve_step
+from repro_torch.launch.steps import (
+    DecodeGraph,
+    decode_graphable,
+    make_bulk_prefill_step,
+    make_serve_step,
+)
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.models.sharded import is_dtensor
 
@@ -77,6 +99,7 @@ _SLO_WINDOW = 512  # swap/staleness samples kept for percentile SLOs
 _SWAP_CHUNK = 512 * 1024  # f32 elements per device write (~2 MB)
 _SWAP_PAUSE_S = 0.001     # yield between chunks so queued decodes interleave
 _SWAP_DRAIN_TIMEOUT_S = 30.0  # max wait for a batch still on the standby leaves
+_DECODE_GRAPHS = 4  # captured decode steps kept; the oldest idle one goes first
 
 
 def _percentile(sorted_vals: list[float], q: float) -> float:
@@ -103,6 +126,7 @@ class _Deployed:
     counter: int
     deployed_at: float
     buf: int | None    # device-buffer index (None: a mesh tree)
+    gen: int = 0       # generation of that buffer's leaf set
 
 
 class _ChunkCopier:
@@ -232,6 +256,13 @@ class ServingNode:
         self._buf_refs = [0, 0]
         self._buf_cv = threading.Condition()
         self._copier: _ChunkCopier | None = None
+        # leaf-set generation of each device buffer: bumped whenever its
+        # leaves are freshly allocated, which invalidates its decode graphs
+        self._leaf_gen = [0, 0]
+        self._graphable = decode_graphable(self.model, self.device, mesh)
+        self._graphs: dict[tuple, DecodeGraph] = {}  # (buf, gen, B), oldest first
+        self._graphs_busy: set[tuple] = set()
+        self._graph_lock = threading.Lock()
 
         self._lock = threading.Lock()
         self._swaps = 0
@@ -327,7 +358,8 @@ class ServingNode:
             # publish: one reference flip; in-flight batches keep their
             # snapshot of the previous tree
             self._deployed = _Deployed(params=tree, source=dep.source, counter=dep.counter,
-                                       deployed_at=self._clock(), buf=buf_index)
+                                       deployed_at=self._clock(), buf=buf_index,
+                                       gen=self._leaf_gen[idx])
             self._standby ^= 1
         t1 = self._clock()
         with self._lock:
@@ -366,6 +398,7 @@ class ServingNode:
             # which case fresh allocations keep the old leaves intact
             leaves = [torch.empty(s, dtype=torch_dtype(d), device=self.device)
                       for s, d in zip(self.spec.shapes, self.spec.dtypes)]
+            self._leaf_gen[idx] += 1
         if self._copier is None:
             self._copier = _ChunkCopier(self.device)
         copier = self._copier
@@ -443,14 +476,27 @@ class ServingNode:
         toks = [tok]
         if on_token is not None:
             on_token(0)
-        for t in range(1, new_tokens):
-            with tel.span("serve.decode", trace=batch_no):
-                with tel.span("serve.decode.issue"):
-                    tok, cache = self._serve_step(dep.params, tok, cache, S - 1 + t)
-                _sync(tok)
-            toks.append(tok)
-            if on_token is not None:
-                on_token(t)
+        key = (dep.buf, dep.gen, B)
+        graph = self._take_graph(dep, key, batch_no) if new_tokens > 1 else None
+        try:
+            for t in range(1, new_tokens):
+                with tel.span("serve.decode", trace=batch_no):
+                    with tel.span("serve.decode.issue"):
+                        if graph is None:
+                            tok, cache = self._serve_step(dep.params, tok, cache, S - 1 + t)
+                        else:
+                            if t == 1:
+                                graph.load(tok, cache)
+                            with tel.span("serve.decode.replay"):
+                                tok = graph.replay().clone()
+                    _sync(tok)
+                tel.count("serve.decode.eager" if graph is None else "serve.decode.graph")
+                toks.append(tok)
+                if on_token is not None:
+                    on_token(t)
+        finally:
+            if graph is not None:
+                self._give_back_graph(key)
         t_end = self._clock()
         n_tokens = B * new_tokens
         with self._lock:
@@ -464,6 +510,44 @@ class ServingNode:
         if is_dtensor(out):
             out = out.full_tensor()
         return out.cpu().numpy(), meta
+
+    def _take_graph(self, dep: _Deployed, key: tuple, batch_no: int) -> DecodeGraph | None:
+        """The decode graph for ``key`` (the batch's buffer, its leaf-set
+        generation and batch size), held for this batch; captured now if
+        there is none. None where the node decodes eagerly or another batch
+        holds that graph."""
+        if not self._graphable:
+            return None
+        with self._graph_lock:
+            if key in self._graphs_busy:
+                return None
+            self._graphs_busy.add(key)
+            graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        try:
+            with self.telemetry.span("serve.decode.capture", trace=batch_no):
+                graph = DecodeGraph(self._serve_step, dep.params, self.model, key[2],
+                                    self.device)
+        except BaseException:
+            with self._graph_lock:
+                self._graphs_busy.discard(key)
+            raise
+        self.telemetry.count("serve.decode.capture")
+        with self._graph_lock:
+            self._graphs[key] = graph
+        return graph
+
+    def _give_back_graph(self, key: tuple) -> None:
+        """Release a batch's graph, then drop every idle graph of a stale
+        leaf set, and the oldest idle ones past ``_DECODE_GRAPHS``."""
+        with self._graph_lock:
+            self._graphs_busy.discard(key)
+            for k in list(self._graphs):
+                buf, gen, _ = k
+                if k not in self._graphs_busy and (
+                        gen != self._leaf_gen[buf] or len(self._graphs) > _DECODE_GRAPHS):
+                    del self._graphs[k]
 
     # -- SLOs / observability -------------------------------------------
 

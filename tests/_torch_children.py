@@ -211,3 +211,40 @@ def mesh_cuda_rank(rank, root, arch):
                        "launches": launches, "want_launches": want}, f)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_decode_rank(rank, root):
+    """The one rank of a world-1 gloo mesh: serve mamba2-130m ``reduced()``
+    through ``ServingNode(mesh=)`` on the CPU and write whether the node
+    could replay a decode graph, the graphs it holds, its span names and its
+    counters to ``root/mesh_decode.json``."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import Telemetry
+    from repro_torch.core.serialize import NodeUpdate
+    from repro_torch.core.store import InMemoryFolder, WeightStore
+    from repro_torch.launch.mesh import make_host_mesh, start_group
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingNode
+
+    start_group(f"{root}/pg", rank=rank, world_size=1, device="cpu")
+    try:
+        cfg = get_config("mamba2-130m").reduced()
+        store = WeightStore(InMemoryFolder())
+        store.push(NodeUpdate(params=build_model(cfg).init(0, device="cpu"), num_examples=1,
+                              node_id="t", counter=0))
+        tel = Telemetry("server", enabled=True, flush_every=10**9)
+        node = ServingNode(store, cfg, mesh=make_host_mesh(device_type="cpu"), telemetry=tel,
+                           device="cpu")
+        assert node.poll_once()
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9), dtype=np.int32)
+        node.generate(prompts, new_tokens=4)
+        with open(f"{root}/mesh_decode.json", "w") as f:
+            json.dump({"graphable": node._graphable, "graphs": len(node._graphs),
+                       "spans": sorted({r.name for r in tel.recorder.drain_records()}),
+                       "counters": tel.snapshot()["counters"]}, f)
+    finally:
+        dist.destroy_process_group()

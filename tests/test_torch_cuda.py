@@ -678,3 +678,214 @@ def test_serve_and_strategies_twin_on_the_card(cuda):
     got = serve_and_strategies.strategies_demo(device=cuda, uri="memory://cuda-strategies")
     assert got["launches"]["fed_agg"] >= 1
     assert kernel.LAUNCHES["fed_agg"] - before == got["launches"]["fed_agg"]
+
+
+# --- the serving node's decode graphs: mamba2-130m at its published widths, bf16 -----------
+
+GRAPH_B, GRAPH_NEW = 8, 40
+
+
+@pytest.fixture(scope="module")
+def mamba2_sets():
+    """mamba2-130m's published config and three weight sets drawn on the
+    card from seeds 0-2, as host f32 flats ready to deploy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import LeafSpec
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg)
+    spec = LeafSpec.of(model.abstract())
+    flats = []
+    for seed in range(3):
+        params = model.init(seed, device="cuda")
+        flats.append(spec.flatten_into(params, spec.empty_flat()))
+        del params
+    return cfg, flats
+
+
+def _graph_node(cfg):
+    from repro_torch.core import Telemetry
+    from repro_torch.core.store import InMemoryFolder, WeightStore
+    from repro_torch.serving import ServingNode
+
+    tel = Telemetry("server", enabled=True, flush_every=10**9)
+    return ServingNode(WeightStore(InMemoryFolder()), cfg, telemetry=tel, device="cuda"), tel
+
+
+def _deploy(node, flats, k):
+    from repro_torch.serving.watcher import Deployment
+
+    node.deploy(Deployment(source="t", counter=k, timestamp=0.0, max_counter=k,
+                           flat=flats[k]))
+
+
+def _eager_decode(node, prompts, new_tokens):
+    """The node's eager path on its deployed weights: the bulk prefill, then
+    ``make_serve_step`` once a token → (tokens (B, new) numpy, final cache)."""
+    params = node._deployed.params
+    p = torch.as_tensor(prompts).to("cuda")
+    B, S = p.shape
+    cache = node.model.init_cache(B, capacity=S + new_tokens, device="cuda")
+    tok, cache = node._prefill(params, p, cache)
+    toks = [tok]
+    for t in range(1, new_tokens):
+        tok, cache = node._serve_step(params, tok, cache, S - 1 + t)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).cpu().numpy(), cache
+
+
+def _graph_prompts(cfg, S, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (GRAPH_B, S), dtype=np.int32)
+
+
+def _graph_counters(tel):
+    return tel.snapshot()["counters"]
+
+
+@pytest.mark.parametrize("S", [75, 300])
+def test_decode_graph_serves_the_eager_tokens_and_cache_bitwise(cuda, mamba2_sets, S):
+    """The graph path's tokens and final cache equal the eager path's bit for
+    bit; the bulk prefill still launches ssd_scan once a layer."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    cfg, flats = mamba2_sets
+    node, tel = _graph_node(cfg)
+    assert node._graphable
+    _deploy(node, flats, 0)
+    prompts = _graph_prompts(cfg, S)
+    sk.reset_launches()
+    tokens, _ = node.generate(prompts, new_tokens=GRAPH_NEW)
+    assert sk.LAUNCHES["ssd_scan"] == cfg.n_layers
+    want, want_cache = _eager_decode(node, prompts, GRAPH_NEW)
+    assert np.array_equal(tokens, want)
+    dep = node._deployed
+    graph = node._graphs[(dep.buf, dep.gen, GRAPH_B)]
+    for got, ref in zip(tree_leaves(graph.cache), tree_leaves(want_cache)):
+        assert torch.equal(got, ref)
+    again, _ = node.generate(prompts, new_tokens=GRAPH_NEW)
+    assert np.array_equal(again, want)
+    records = tel.recorder.drain_records()
+    assert sum(r.name == "serve.decode.replay" for r in records) == 2 * (GRAPH_NEW - 1)
+    counters = _graph_counters(tel)
+    assert counters["serve.decode.capture"] == 1
+    assert counters["serve.decode.graph"] == 2 * (GRAPH_NEW - 1)
+    assert "serve.decode.eager" not in counters
+
+
+@pytest.mark.parametrize("S", [75, 300])
+def test_decode_graph_replays_the_leaves_a_swap_rewrote_in_place(cuda, mamba2_sets, S):
+    cfg, flats = mamba2_sets
+    node, tel = _graph_node(cfg)
+    prompts = _graph_prompts(cfg, S)
+    _deploy(node, flats, 0)  # buffer 0
+    first, _ = node.generate(prompts, new_tokens=GRAPH_NEW)
+    _deploy(node, flats, 1)  # buffer 1
+    _deploy(node, flats, 2)  # buffer 0, rewritten in place
+    assert node._deployed.buf == 0 and node._deployed.gen == 1
+    tokens, meta = node.generate(prompts, new_tokens=GRAPH_NEW)
+    assert meta["counter"] == 2
+    want, _ = _eager_decode(node, prompts, GRAPH_NEW)
+    assert np.array_equal(tokens, want)
+    assert not np.array_equal(tokens, first)
+    assert _graph_counters(tel)["serve.decode.capture"] == 1
+
+
+@pytest.mark.parametrize("S", [75, 300])
+def test_decode_graph_captures_while_the_watcher_writes_a_swap(cuda, mamba2_sets, S,
+                                                                monkeypatch):
+    """A batch's first decode captures its graph while the watcher writes a
+    swap into the other buffer: the capture succeeds and serves the eager
+    tokens, and so does the next buffer's."""
+    import threading
+
+    from repro_torch.serving import node as node_mod
+
+    cfg, flats = mamba2_sets
+    node, tel = _graph_node(cfg)
+    prompts = _graph_prompts(cfg, S)
+    _deploy(node, flats, 0)
+    _deploy(node, flats, 1)  # the batch below runs on buffer 1, the swap writes buffer 0
+    want, _ = _eager_decode(node, prompts, GRAPH_NEW)
+    monkeypatch.setattr(node_mod, "_SWAP_PAUSE_S", 0.005)  # over 1 s of chunked writes
+    writing = threading.Event()
+    copy = node_mod._ChunkCopier.copy
+
+    def copy_and_tell(self, dst, src):
+        copy(self, dst, src)
+        writing.set()
+
+    monkeypatch.setattr(node_mod._ChunkCopier, "copy", copy_and_tell)
+    swap = threading.Thread(target=_deploy, args=(node, flats, 2))
+    swap.start()
+    assert writing.wait(60)
+    tokens, meta = node.generate(prompts, new_tokens=GRAPH_NEW)
+    swap.join(timeout=120)
+    assert not swap.is_alive()
+    assert meta["counter"] == 1 and np.array_equal(tokens, want)
+    records = tel.recorder.drain_records()
+    (capture,) = [r for r in records if r.name == "serve.decode.capture"]
+    (write,) = [r for r in records if r.name == "serve.swap.write" and r.trace == 2]
+    assert write.t0 < capture.t0 + capture.dur and capture.t0 < write.t0 + write.dur
+    assert node._deployed.counter == 2
+    after, _ = node.generate(prompts, new_tokens=GRAPH_NEW)  # buffer 0: a second capture
+    assert np.array_equal(after, _eager_decode(node, prompts, GRAPH_NEW)[0])
+    assert _graph_counters(tel)["serve.decode.capture"] == 2
+
+
+@pytest.mark.parametrize("S", [75, 300])
+def test_decode_graph_busy_sends_a_concurrent_batch_eager(cuda, mamba2_sets, S):
+    """A second generate, on another thread while the first holds the graph,
+    decodes eagerly and gives the same tokens."""
+    import threading
+
+    cfg, flats = mamba2_sets
+    node, tel = _graph_node(cfg)
+    _deploy(node, flats, 0)
+    prompts = _graph_prompts(cfg, S)
+    want, _ = _eager_decode(node, prompts, GRAPH_NEW)
+    inner = {}
+
+    def second_batch():
+        inner["tokens"], _ = node.generate(prompts, new_tokens=GRAPH_NEW)
+
+    def on_token(t):
+        if t == 1:
+            th = threading.Thread(target=second_batch)
+            th.start()
+            th.join(timeout=120)
+            assert not th.is_alive()
+
+    tokens, _ = node.generate(prompts, new_tokens=GRAPH_NEW, on_token=on_token)
+    assert np.array_equal(tokens, want) and np.array_equal(inner["tokens"], want)
+    counters = _graph_counters(tel)
+    assert counters["serve.decode.eager"] == GRAPH_NEW - 1
+    assert counters["serve.decode.graph"] == GRAPH_NEW - 1
+    assert counters["serve.decode.capture"] == 1
+
+
+@pytest.mark.parametrize("S", [75, 300])
+def test_decode_graph_recaptured_after_a_drain_timeout(cuda, mamba2_sets, S, monkeypatch):
+    """A swap that times out on a wedged batch allocates fresh leaves: a new
+    generation, a new capture, the new set's tokens; the stale graph goes."""
+    from repro_torch.serving import node as node_mod
+
+    cfg, flats = mamba2_sets
+    node, tel = _graph_node(cfg)
+    prompts = _graph_prompts(cfg, S)
+    _deploy(node, flats, 0)
+    node.generate(prompts, new_tokens=GRAPH_NEW)  # captures (0, 1, B)
+    _deploy(node, flats, 1)
+    monkeypatch.setattr(node_mod, "_SWAP_DRAIN_TIMEOUT_S", 0.05)
+    node._buf_refs[0] += 1  # a batch wedged on buffer 0
+    _deploy(node, flats, 2)
+    node._buf_refs[0] -= 1
+    assert node._deployed.buf == 0 and node._deployed.gen == 2
+    tokens, _ = node.generate(prompts, new_tokens=GRAPH_NEW)
+    assert np.array_equal(tokens, _eager_decode(node, prompts, GRAPH_NEW)[0])
+    assert _graph_counters(tel)["serve.decode.capture"] == 2
+    assert list(node._graphs) == [(0, 2, GRAPH_B)]
