@@ -2,10 +2,13 @@
 ``repro.configs``.
 
 The same 10 assigned architectures plus the paper's pythia-14m, as data. The
-reference keeps one module per arch (each citing its source in its
-docstring); its registry imports ``ModelConfig`` from ``repro.models``, so the
-port carries its own copy of every config. Which of them the port can build
-is ``repro_torch.models.build_model``'s business, not this registry's.
+reference keeps one module per arch (each citing its source in its docstring);
+its registry imports ``ModelConfig`` from ``repro.models``, so the port
+carries its own copy of every config. ``PORT_IDS`` are the port's own
+configurations, which the reference's registry lacks: granite-4.0-h-micro, a
+hybrid of Mamba2 + MLP (``ssm_mlp``) and NoPE GQA + MLP (``attn``) layers.
+Which of them the port can build is ``repro_torch.models.build_model``'s
+business, not this registry's.
 """
 from __future__ import annotations
 
@@ -25,6 +28,11 @@ ARCH_IDS = [
 ]
 
 PAPER_IDS = ["pythia-14m"]
+
+PORT_IDS = ["granite-4.0-h-micro"]
+
+# granite-4.0-h's period of 10 layers: Mamba2 at 0-4 and 6-9, attention at 5
+GRANITE_H_PERIOD = ("ssm_mlp",) * 5 + ("attn",) + ("ssm_mlp",) * 4
 
 _CONFIGS = {
     # [ssm] SSD (state-space duality) [arXiv:2405.21060]
@@ -100,6 +108,17 @@ _CONFIGS = {
         source="arXiv:2304.01373 (Pythia); hf:EleutherAI/pythia-14m",
         n_layers=6, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32, d_ff=512,
         vocab_size=50304, activation="gelu", tie_embeddings=True),
+    # [hybrid] 36 Mamba2 + 4 NoPE GQA layers, each with a SwiGLU MLP, and
+    # Granite's multipliers [hf:ibm-granite/granite-4.0-h-micro config.json]
+    "granite-4.0-h-micro": ModelConfig(
+        name="granite-4.0-h-micro", arch_type="hybrid",
+        source="hf:ibm-granite/granite-4.0-h-micro (granitemoehybrid, 2025-10)",
+        n_layers=40, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64, d_ff=8192,
+        vocab_size=100352, activation="swiglu", position_embedding="nope",
+        ssm_state=128, ssm_conv=4, ssm_expand=2, ssm_head_dim=64, ssm_chunk=256,
+        layer_pattern=GRANITE_H_PERIOD, embedding_multiplier=12.0,
+        attention_multiplier=0.015625, residual_multiplier=0.22, logits_scaling=8.0,
+        norm_eps=1e-5, tie_embeddings=True),
 }
 
 
@@ -107,7 +126,8 @@ def get_config(arch: str) -> ModelConfig:
     try:
         return _CONFIGS[arch]
     except KeyError:
-        raise KeyError(f"unknown arch {arch!r}; options: {ARCH_IDS + PAPER_IDS}") from None
+        raise KeyError(f"unknown arch {arch!r}; options: {ARCH_IDS + PAPER_IDS + PORT_IDS}") \
+            from None
 
 
 def all_configs() -> dict[str, ModelConfig]:

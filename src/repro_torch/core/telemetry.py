@@ -296,6 +296,11 @@ class Telemetry:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + n
 
+    def counters(self) -> dict[str, float]:
+        """A copy of every counter's running total."""
+        with self._lock:
+            return dict(self._counters)
+
     def observe_staleness(self, value: float) -> None:
         """Record one peer-update staleness sample (own counter − peer counter)."""
         if not self.enabled:

@@ -139,7 +139,9 @@ def make_serve_step(cfg: ModelConfig, *, window_override: int | None = None) -> 
 def decode_graphable(model, device: torch.device, mesh=None) -> bool:
     """Whether ``model``'s serve step can be replayed from a CUDA graph: on
     one card, off a mesh, and with every block ``ssm``, whose decode carries
-    a cache of fixed shape and reads no host position."""
+    a cache of fixed shape and reads no host position. A hybrid with
+    attention layers (granite-4.0-h) decodes eagerly: its ring write and
+    mask read the host position."""
     return (device.type == "cuda" and mesh is None
             and all(kind == "ssm" for kind in (*model.pattern, *model.tail)))
 

@@ -21,6 +21,11 @@ softcap, and the reference never sends a capped config to one: a nonzero
 ``attn_logit_softcap`` (grok-1) takes ``_sdpa``/``chunked_sdpa`` with the cap
 on every device, as MLA does.
 
+Granite 4.0's GQA (``position_embedding="nope"``, ``attention_multiplier``)
+takes no rotary embedding and scales its scores by the multiplier in place of
+1/sqrt(head_dim): the plain paths take the scale as it is, and q is pre-scaled
+before either kernel, which keeps its fixed 1/sqrt(head_dim) (``_kernel_q``).
+
 Unlike the reference's pure functions, the cache is updated *in place* (and
 returned): a cache is a few GB at serving's batch sizes, and a functional
 update would copy it every token.
@@ -56,9 +61,10 @@ def _maybe_softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
     return scores
 
 
-def _sdpa(q, k, v, mask, softcap: float) -> torch.Tensor:
-    """q: (B,S,KV,G,hd), k/v: (B,T,KV,hd), mask: (B,S,T) or (S,T)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _sdpa(q, k, v, mask, softcap: float, scale: float | None = None) -> torch.Tensor:
+    """q: (B,S,KV,G,hd), k/v: (B,T,KV,hd), mask: (B,S,T) or (S,T); scores
+    scaled by ``scale`` (default 1/sqrt(hd))."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
     scores = _maybe_softcap(scores, softcap)
     mask_b = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
@@ -70,16 +76,17 @@ def _sdpa(q, k, v, mask, softcap: float) -> torch.Tensor:
 
 def chunked_sdpa(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                  window: int = 0, softcap: float = 0.0, qblock: int = 256,
-                 probs_bf16: bool = False) -> torch.Tensor:
+                 probs_bf16: bool = False, scale: float | None = None) -> torch.Tensor:
     """Memory-bounded attention: a loop over query blocks, full softmax per
     row against (a slice of) K. Never materializes the S×T score matrix.
     With a sliding ``window``, each q-block only reads a (window + qblock)
     K/V slice. Under autograd each block is recomputed in the backward
     instead of saving its f32 (B,KV,G,qblock,T) probabilities.
-    qg: (B,S,KV,G,hd), k/v: (B,T,KV,hd)."""
+    qg: (B,S,KV,G,hd), k/v: (B,T,KV,hd); scores scaled by ``scale``
+    (default 1/sqrt(hd))."""
     B, S, KV, G, hd = qg.shape
     T = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     if S % qblock != 0:
         qblock = math.gcd(S, qblock) or S
     use_slice = window > 0 and causal
@@ -167,31 +174,42 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
     if cfg.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.position_embedding != "nope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def _kernel_q(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
+    """q for a kernel, which scales scores by 1/sqrt(hd): where
+    ``attention_multiplier`` is set, pre-scaled by the multiplier times
+    sqrt(hd), so the scores come out scaled by the multiplier.
+    granite-4.0-h's 1/64 at hd 64 gives 0.125, a power of two: exact in bf16."""
+    if not cfg.attention_multiplier:
+        return q
+    return q * (cfg.attention_multiplier * math.sqrt(q.shape[-1]))
+
+
 def _plain_causal(qg, k, v, *, window: int, softcap: float, qblock: int,
-                  probs_bf16: bool) -> torch.Tensor:
+                  probs_bf16: bool, scale: float | None = None) -> torch.Tensor:
     """Plain causal attention: ``_sdpa``, or ``chunked_sdpa`` above
     ``CHUNKED_THRESHOLD``."""
     S = qg.shape[1]
     if S > CHUNKED_THRESHOLD:
         return chunked_sdpa(qg, k, v, causal=True, window=window, softcap=softcap,
-                            qblock=qblock, probs_bf16=probs_bf16)
-    return _sdpa(qg, k, v, causal_mask(S, window, device=qg.device), softcap)
+                            qblock=qblock, probs_bf16=probs_bf16, scale=scale)
+    return _sdpa(qg, k, v, causal_mask(S, window, device=qg.device), softcap, scale)
 
 
 def _full_causal_out(cfg: ModelConfig, qg, k, v, *, window: int, use_flash: bool):
     """Full-sequence causal dispatch shared by attn_full / attn_prefill; on a
     mesh, each rank attends over its own batch rows and KV heads."""
     if use_flash and cfg.attn_logit_softcap == 0:
-        return on_local_shards(flash_ops.flash_attention, (qg, k, v), heads=(2, 2, 2),
-                               window=window)
+        return on_local_shards(flash_ops.flash_attention, (_kernel_q(cfg, qg), k, v),
+                               heads=(2, 2, 2), window=window)
     return on_local_shards(_plain_causal, (qg, k, v), heads=(2, 2, 2), window=window,
                            softcap=cfg.attn_logit_softcap, qblock=cfg.attn_qblock,
-                           probs_bf16=cfg.attn_probs_bf16)
+                           probs_bf16=cfg.attn_probs_bf16, scale=cfg.attention_multiplier)
 
 
 def attn_full(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int | None = None,
@@ -237,10 +255,10 @@ def init_attn_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *,
     }
 
 
-def _sdpa_valid(qg, k, v, valid, *, softcap: float) -> torch.Tensor:
+def _sdpa_valid(qg, k, v, valid, *, softcap: float, scale: float | None = None) -> torch.Tensor:
     """``_sdpa`` of one decode query against a ring whose (C,) ``valid`` mask
     the batch shares."""
-    return _sdpa(qg, k, v, valid[None, None, :], softcap)
+    return _sdpa(qg, k, v, valid[None, None, :], softcap, scale)
 
 
 def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int, *,
@@ -264,11 +282,13 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: in
     G = cfg.n_heads // cfg.n_kv_heads
     qg = split_dim(q, 2, (cfg.n_kv_heads, G))
     if cfg.attn_logit_softcap == 0:
-        out = on_local_shards(dec_ops.decode_attention, (qg, cache["k"], cache["v"], valid),
+        out = on_local_shards(dec_ops.decode_attention,
+                              (_kernel_q(cfg, qg), cache["k"], cache["v"], valid),
                               heads=(2, 2, 2, None))
     else:
         out = on_local_shards(_sdpa_valid, (qg, cache["k"], cache["v"], valid),
-                              heads=(2, 2, 2, None), softcap=cfg.attn_logit_softcap)
+                              heads=(2, 2, 2, None), softcap=cfg.attn_logit_softcap,
+                              scale=cfg.attention_multiplier)
     out = out.reshape(B, 1, cfg.n_heads * hd)
     return dense_apply(p["wo"], out), cache
 

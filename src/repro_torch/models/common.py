@@ -47,6 +47,13 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     attn_qblock: int = 256
     attn_probs_bf16: bool = False
+    position_embedding: str = "rope"  # rope | nope (no position signal in q/k)
+
+    # multipliers (Granite 4.0); each default leaves the model as it was
+    embedding_multiplier: float = 0.0  # 0 → sqrt(d_model)
+    attention_multiplier: float = 0.0  # the softmax scale; 0 → 1/sqrt(head_dim)
+    residual_multiplier: float = 1.0   # on each mixer and MLP output before the residual add
+    logits_scaling: float = 1.0        # logits ÷ this
 
     # activation
     activation: str = "swiglu"  # swiglu | geglu | gelu
@@ -224,9 +231,11 @@ def embedding_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def scaled_embedding(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings times sqrt(d_model), the scale rounded to the model's
-    dtype first, as the reference's decoders scale them."""
-    scale = torch.tensor(cfg.d_model**0.5, dtype=cfg.torch_dtype).item()
+    """Token embeddings times sqrt(d_model), or ``embedding_multiplier`` where
+    it is set, the scale rounded to the model's dtype first, as the
+    reference's decoders scale them."""
+    scale = torch.tensor(cfg.embedding_multiplier or cfg.d_model**0.5,
+                         dtype=cfg.torch_dtype).item()
     return embedding_apply(p, tokens) * scale
 
 

@@ -5,6 +5,8 @@ Block kinds, as in the reference:
   moe_attn  — pre-norm GQA attention + pre-norm MoE (aux loss accumulated)
   ssm       — pre-norm Mamba2 SSD block (no separate MLP)
   rglru     — pre-norm RG-LRU recurrent block + pre-norm MLP
+  ssm_mlp   — pre-norm Mamba2 SSD block + pre-norm MLP (the port's own kind,
+              for granite-4.0-h's Mamba2 layers; the reference has none)
 
 The parameter tree is the reference's, leaf for leaf: ``embed/table``,
 ``blocks/u<u>_<kind>/...`` with a leading group axis over the stacked layers,
@@ -21,7 +23,9 @@ attention takes the flash kernel only with ``use_flash=True`` (the
 reference's switch, off by default), ``ssm`` blocks always run the plain
 ``ssd_chunked``, as in the reference, and MLA, RG-LRU and MoE have no kernel
 in either package. Serving's ``prefill`` and ``decode_step`` run the kernels
-of GQA attention (``attn`` and ``moe_attn`` blocks) and of ``ssm`` blocks.
+of GQA attention (``attn`` and ``moe_attn`` blocks) and of ``ssm`` and
+``ssm_mlp`` blocks; a hybrid's decode cache holds each attention layer's ring
+beside each Mamba2 layer's conv window and state.
 ``remat=True`` recomputes each layer group in the backward
 (``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``).
 ``remat_policy="dots"`` saves the outputs of ``aten.mm`` and ``aten.addmm``
@@ -30,6 +34,12 @@ rest, ``bmm`` (the batched attention products) included — the counterpart of
 the reference's ``dots_with_no_batch_dims_saveable``, through
 ``create_selective_checkpoint_contexts``; any other policy recomputes the
 whole group, as the reference's does.
+
+Granite 4.0's multipliers (``ModelConfig``): ``embedding_multiplier`` in
+place of sqrt(d_model) on the token embeddings, ``residual_multiplier`` on
+every mixer and MLP output before it joins the residual, ``logits_scaling``
+dividing the logits; each is skipped at its default, so every other model
+computes what it did.
 
 A VLM prefix (``extra_embeds``: stub patch embeddings, ``models.frontends``)
 is concatenated in front of the scaled token embeddings and occupies
@@ -103,6 +113,13 @@ def _init_block(gen, cfg: ModelConfig, kind: str, lead: tuple = ()) -> dict:
             "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
             "ssm": ssm_mod.init_mamba2(gen, cfg, lead=lead),
         }
+    if kind == "ssm_mlp":
+        return {
+            "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "ssm": ssm_mod.init_mamba2(gen, cfg, lead=lead),
+            "norm2": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
+            "mlp": mlp_init(gen, cfg, lead=lead),
+        }
     if kind == "rglru":
         return {
             "norm1": rmsnorm_init(gen, cfg.d_model, dt, lead=lead),
@@ -117,67 +134,74 @@ def _is_mla(cfg: ModelConfig, kind: str) -> bool:
     return cfg.attention == "mla" and kind == "attn"
 
 
+def _residual(cfg: ModelConfig, x, out):
+    """x + out, the branch scaled by ``residual_multiplier`` where it is set."""
+    if cfg.residual_multiplier != 1.0:
+        out = out * cfg.residual_multiplier
+    return x + out
+
+
 def _ffn(p, cfg: ModelConfig, kind: str, x):
-    """The second half of an attention or RG-LRU block: pre-norm MLP, or MoE
-    for ``moe_attn`` → (x, aux)."""
+    """The second half of an attention, RG-LRU or ``ssm_mlp`` block: pre-norm
+    MLP, or MoE for ``moe_attn`` → (x, aux)."""
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if kind == "moe_attn":
         out, aux = replicated(moe_mod.moe_apply)(p["moe"], cfg, h)
-        return x + out, aux
-    return x + mlp_apply(p["mlp"], h, cfg.activation), None
+        return _residual(cfg, x, out), aux
+    return _residual(cfg, x, mlp_apply(p["mlp"], h, cfg.activation)), None
 
 
 def _apply_block_full(p, cfg: ModelConfig, kind: str, x, *, window_override=None,
                       use_flash=False):
     """Full-sequence forward → (x, aux); aux is None for blocks without MoE."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if kind == "ssm":
-        return x + ssm_mod.mamba2_full(p["ssm"], cfg, h), None
-    if kind == "rglru":
-        x = x + rglru_mod.rglru_full(p["rglru"], cfg, h)
+    if kind in ("ssm", "ssm_mlp"):
+        a = ssm_mod.mamba2_full(p["ssm"], cfg, h)
+    elif kind == "rglru":
+        a = rglru_mod.rglru_full(p["rglru"], cfg, h)
     elif _is_mla(cfg, kind):
-        x = x + attn_mod.mla_full(p["attn"], cfg, h, window=window_override)
+        a = attn_mod.mla_full(p["attn"], cfg, h, window=window_override)
     else:
-        x = x + attn_mod.attn_full(p["attn"], cfg, h, window=window_override,
-                                   use_flash=use_flash)
-    return _ffn(p, cfg, kind, x)
+        a = attn_mod.attn_full(p["attn"], cfg, h, window=window_override, use_flash=use_flash)
+    x = _residual(cfg, x, a)
+    return (x, None) if kind == "ssm" else _ffn(p, cfg, kind, x)
 
 
 def _apply_block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos, *, window_override=None):
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if kind == "ssm":
-        out, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
-        return x + out, cache
-    if kind == "rglru":
+    if kind in ("ssm", "ssm_mlp"):
+        a, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
+    elif kind == "rglru":
         a, cache = rglru_mod.rglru_decode(p["rglru"], cfg, h, cache)
     elif _is_mla(cfg, kind):
         a, cache = attn_mod.mla_decode(p["attn"], cfg, h, cache, pos, window=window_override,
                                        absorb=cfg.mla_absorb)
     else:
         a, cache = attn_mod.attn_decode(p["attn"], cfg, h, cache, pos, window=window_override)
-    return _ffn(p, cfg, kind, x + a)[0], cache
+    x = _residual(cfg, x, a)
+    return (x if kind == "ssm" else _ffn(p, cfg, kind, x)[0]), cache
 
 
 def _apply_block_prefill(p, cfg: ModelConfig, kind: str, x, cache, *, window_override=None):
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if kind == "ssm":
-        out, cache = ssm_mod.mamba2_prefill(p["ssm"], cfg, h, cache)
-        return x + out, cache
-    if kind == "rglru":
+    if kind in ("ssm", "ssm_mlp"):
+        a, cache = ssm_mod.mamba2_prefill(p["ssm"], cfg, h, cache)
+    elif kind == "rglru":
         a, cache = rglru_mod.rglru_prefill(p["rglru"], cfg, h, cache)
     elif _is_mla(cfg, kind):
         a, cache = attn_mod.mla_prefill(p["attn"], cfg, h, cache, window=window_override)
     else:
         a, cache = attn_mod.attn_prefill(p["attn"], cfg, h, cache, window=window_override)
-    return _ffn(p, cfg, kind, x + a)[0], cache
+    x = _residual(cfg, x, a)
+    return (x if kind == "ssm" else _ffn(p, cfg, kind, x)[0]), cache
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
                       device, lead: tuple = ()) -> dict:
     """An attention block's ring cache (GQA k/v, or MLA's latent c_kv and rope
-    key), an ``ssm`` block's conv window and f32 state, or an ``rglru``
-    block's conv window and f32 h."""
-    if kind == "ssm":
+    key), an ``ssm`` or ``ssm_mlp`` block's conv window and f32 state, or an
+    ``rglru`` block's conv window and f32 h."""
+    if kind in ("ssm", "ssm_mlp"):
         return ssm_mod.init_ssm_cache(cfg, batch, device=device, lead=lead)
     if kind == "rglru":
         return rglru_mod.init_rglru_cache(cfg, batch, device=device, lead=lead)
@@ -252,7 +276,10 @@ class DecoderLM:
 
     def _logits(self, params, x):
         x = rmsnorm_apply(params["final_norm"], x, self.cfg.norm_eps)
-        return unembed_apply(params.get("unembed", params["embed"]), x)
+        logits = unembed_apply(params.get("unembed", params["embed"]), x)
+        if self.cfg.logits_scaling != 1.0:
+            logits = logits / self.cfg.logits_scaling
+        return logits
 
     # -- full forward ----------------------------------------------------------
     def _group_full(self, group: dict, x, aux, window_override, use_flash):

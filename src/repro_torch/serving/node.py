@@ -48,19 +48,22 @@ whole on every rank.
 Telemetry spans ride ``obs/`` blobs like every trainer's metrics do, beside a
 ``serve`` SLO dict (swap-latency percentiles, staleness-in-rounds, token
 throughput). On the request thread, one trace a batch (its number):
+``serve.cache.init`` (the batch's fresh decode cache; counters
+``serve.cache.kv_bytes``, its attention rings, and
+``serve.cache.state_bytes``, its conv windows and recurrent states), then
 ``serve.prefill`` and ``serve.decode`` (one a token), each ended by a host
 sync, with a child ``serve.prefill.issue`` / ``serve.decode.issue`` from its
-start to that sync, which is how long the host takes to issue the step's
-work; inside ``serve.decode.issue`` a ``serve.decode.replay`` where the step
-is a graph's replay, and before a batch's first decode a
-``serve.decode.capture`` where its graph is captured then (counters
-``serve.decode.graph``, ``serve.decode.eager``, ``serve.decode.capture``).
-On the watcher thread: ``serve.poll`` (the store's ``get``/``decode``
-below it) and ``serve.swap`` (trace: the deployment's counter) with children
-``serve.swap.stage`` (the host buffer), ``serve.swap.wait`` (a batch still on
-the standby leaves) and ``serve.swap.write`` (the chunked device writes and
-their pauses). The node never attaches its Telemetry to the store: the store's
-spans are children of the node's open span on the calling thread.
+start to that sync, which is how long the host takes to issue the step's work;
+inside ``serve.decode.issue`` a ``serve.decode.replay`` where the step is a
+graph's replay, and before a batch's first decode a ``serve.decode.capture``
+where its graph is captured then (counters ``serve.decode.graph``,
+``serve.decode.eager``, ``serve.decode.capture``). On the watcher thread:
+``serve.poll`` (the store's ``get``/``decode`` below it) and ``serve.swap``
+(trace: the deployment's counter) with children ``serve.swap.stage`` (the host
+buffer), ``serve.swap.wait`` (a batch still on the standby leaves) and
+``serve.swap.write`` (the chunked device writes and their pauses). The node
+never attaches its Telemetry to the store: the store's spans are children of
+the node's open span on the calling thread.
 """
 from __future__ import annotations
 
@@ -76,7 +79,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.telemetry import Telemetry
-from repro_torch.core.tree import LeafSpec, torch_dtype, tree_unflatten
+from repro_torch.core.tree import (LeafSpec, path_str, torch_dtype, tree_flatten_with_path,
+                                   tree_unflatten)
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.kernels import resolve_device
 from repro_torch.launch.mesh import data_axes
@@ -107,6 +111,23 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
         return 0.0
     idx = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
     return sorted_vals[idx]
+
+
+# decode-cache leaves by kind: attention rings (GQA k/v, MLA latents, the
+# ring's positions) and recurrent state (conv windows, SSM and RG-LRU states)
+_RING_LEAVES = frozenset({"k", "v", "c_kv", "k_rope", "slot_pos"})
+
+
+def _cache_bytes(cache) -> tuple[int, int]:
+    """(attention-ring bytes, recurrent-state bytes) of a decode cache."""
+    ring = state = 0
+    for path, leaf in tree_flatten_with_path(cache)[0]:
+        n = leaf.numel() * leaf.element_size()
+        if path_str(path).rsplit("/", 1)[-1] in _RING_LEAVES:
+            ring += n
+        else:
+            state += n
+    return ring, state
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -457,17 +478,22 @@ class ServingNode:
     def _generate_on(self, dep, prompts, new_tokens, on_token):
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
         B, S = prompts.shape
-        cache = self.model.init_cache(B, capacity=S + new_tokens,
-                                      window_override=self._window_override,
-                                      device=self.device)
-        if self.mesh is not None:
-            prompts = shard_batch({"tokens": prompts}, self.mesh,
-                                  batch_axes=data_axes(self.mesh))["tokens"]
-            cache = distribute(cache, serve_cache_shardings(cache, self.mesh))
         tel = self.telemetry
         with self._lock:
             self._batches += 1
             batch_no = self._batches
+        with tel.span("serve.cache.init", trace=batch_no):
+            cache = self.model.init_cache(B, capacity=S + new_tokens,
+                                          window_override=self._window_override,
+                                          device=self.device)
+        if tel.enabled:
+            ring, state = _cache_bytes(cache)
+            tel.count("serve.cache.kv_bytes", ring)
+            tel.count("serve.cache.state_bytes", state)
+        if self.mesh is not None:
+            prompts = shard_batch({"tokens": prompts}, self.mesh,
+                                  batch_axes=data_axes(self.mesh))["tokens"]
+            cache = distribute(cache, serve_cache_shardings(cache, self.mesh))
         t_start = self._clock()
         with tel.span("serve.prefill", trace=batch_no):
             with tel.span("serve.prefill.issue"):
