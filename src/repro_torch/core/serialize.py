@@ -19,12 +19,18 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import math
+import re
+import struct
+import zipfile
+import zlib
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from .telemetry import child_span
 from .tree import (
     NARROW_FLOATS,
     LeafSpec,
@@ -261,12 +267,179 @@ def _wire_keys(spec: LeafSpec) -> tuple[str, ...]:
     return keys
 
 
+def _intern_spec(specs: dict, order, dtypes, quantized: bool, wire_dtypes,
+                 shapes_by_key: dict) -> LeafSpec:
+    """The interned spec of a wire structure (``shapes_by_key``: leaf key →
+    (shape, wire dtype)); one whose shapes drifted is rebuilt and replaced."""
+    skey = _spec_table_key(order, dtypes, quantized, wire_dtypes)
+    spec = specs.get(skey)
+    drifted = False
+    if spec is not None:
+        # verify shapes still match the interned layout; drift → rebuild
+        wire = _wire_keys(spec)
+        if len(wire) != len(shapes_by_key) or any(
+            tuple(shape) != spec.shapes[spec.index[k.replace(_SEP, "/")]]
+            for k, (shape, _) in shapes_by_key.items()
+        ):
+            spec, drifted = None, True
+    if spec is None:
+        spec = _build_wire_spec(order, dtypes, shapes_by_key, quantized)
+        if drifted:
+            specs[skey] = spec  # replace the stale layout
+        else:
+            # setdefault: a racing decode (prefetch thread vs pull) must
+            # not intern two spec instances for one structure
+            spec = specs.setdefault(skey, spec)
+    return spec
+
+
+# A stored zip member's bytes are the .npy file itself, so a leaf can be read
+# where it lies in the blob: the central directory gives each member's local
+# header, the local header where its bytes start, and the .npy header the
+# array's dtype, shape and data offset.
+_ZIP_LOCAL = struct.Struct("<4s22xHH")  # signature; name and extra-field lengths
+_ZIP_LOCAL_MAGIC = b"PK\x03\x04"
+_NPY_MAGIC = b"\x93NUMPY"
+_NPY_MAX_HEADER = 10000  # np.load's own limit on the header it parses
+# the header numpy writes for a C-order array; any other header keeps np.load
+_NPY_HEAD = re.compile(r"\{'descr': '([^']+)', 'fortran_order': False, "
+                       r"'shape': \((\d+(?:, \d+)*,?|)\), \} *\n")
+_CHUNK = 1 << 18  # bytes checked and copied at a time, while they are in cache
+
+
+class _StoredArray(NamedTuple):
+    """Where one stored, C-order ``.npy`` member lies in a zip blob."""
+
+    start: int  # the member's first byte (its .npy magic)
+    end: int
+    crc: int  # the CRC-32 the central directory holds for the member
+    data: int  # the array's first byte
+    dtype: np.dtype
+    shape: tuple
+
+
+def _stored_array(blob: bytes, z: zipfile.ZipFile, key: str) -> _StoredArray | None:
+    """The layout of member ``key`` when it can be read in place: stored,
+    unencrypted, a .npy header of version 1, 2 or 3 as numpy writes it for
+    a C-order array, and no trailing bytes. None for anything else."""
+    try:
+        info = z.getinfo(key + ".npy")
+    except KeyError:
+        return None
+    o = info.header_offset
+    if (info.compress_type != zipfile.ZIP_STORED or info.flag_bits & 1
+            or info.file_size < 12 or o + _ZIP_LOCAL.size > len(blob)):
+        return None
+    magic, n_name, n_extra = _ZIP_LOCAL.unpack_from(blob, o)
+    start = o + _ZIP_LOCAL.size + n_name + n_extra
+    end = start + info.file_size
+    if magic != _ZIP_LOCAL_MAGIC or end > len(blob) or blob[start:start + 6] != _NPY_MAGIC:
+        return None
+    major = blob[start + 6]
+    if major not in (1, 2, 3):
+        return None
+    at = start + (10 if major == 1 else 12)
+    n_head = int.from_bytes(blob[start + 8:at], "little")
+    if n_head > _NPY_MAX_HEADER:
+        return None
+    head = _NPY_HEAD.fullmatch(bytes(blob[at:at + n_head]).decode("latin1"))
+    if head is None:
+        return None
+    try:
+        dtype = np.dtype(head[1])
+    except (TypeError, ValueError):
+        return None
+    shape = tuple(int(d) for d in head[2].split(",") if d)
+    if at + n_head + math.prod(shape) * dtype.itemsize != end:
+        return None
+    return _StoredArray(start, end, info.CRC, at + n_head, dtype, shape)
+
+
+def _check_crc(crc: int, m: _StoredArray, key: str) -> None:
+    """The zip reader's integrity check on a member read in place."""
+    if crc != m.crc:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {key + '.npy'!r}")
+
+
+def _stored_meta(blob: bytes, z: zipfile.ZipFile) -> dict | None:
+    """The ``__meta__`` entry read in place, or None where it is not stored."""
+    m = _stored_array(blob, z, _META_KEY)
+    if m is None or m.dtype != np.uint8 or len(m.shape) != 1:
+        return None
+    view = memoryview(blob)
+    _check_crc(zlib.crc32(view[m.start:m.end]), m, _META_KEY)
+    return json.loads(bytes(view[m.data:m.end]).decode())
+
+
+def _stored_leaves(blob: bytes) -> tuple[dict, dict[str, _StoredArray]] | None:
+    """(meta, leaf key → layout) of a full-update blob whose meta and every
+    leaf can be read in place as f32-exact floats of this host's byte order;
+    None otherwise (deflated, quantized, delta, Fortran order, big-endian,
+    int or f64 leaves, or anything the parse cannot read)."""
+    if blob[:4] != _ZIP_LOCAL_MAGIC:
+        return None
+    try:
+        z = zipfile.ZipFile(io.BytesIO(blob))  # parses the central directory only
+    except zipfile.BadZipFile:
+        return None
+    with z:
+        meta = _stored_meta(blob, z)
+        if meta is None or meta.get("quantized") or "delta_of" in meta:
+            return None
+        order = meta.get("__order__")
+        if not isinstance(order, list):
+            return None
+        members = {}
+        for k in order:
+            m = _stored_array(blob, z, k)
+            if m is None or m.dtype.kind != "f" or m.dtype.itemsize > 4 or not m.dtype.isnative:
+                return None
+            members[k] = m
+    return meta, members
+
+
 def decode_params_flat(blob: bytes, specs: dict) -> tuple[LeafSpec, np.ndarray, dict]:
     """Decode a full or quantized npz blob straight into one preallocated
     host f32 vector. ``specs`` is a caller-owned interning table (structure
     key → LeafSpec) so all updates of one model share a spec instance.
-    Raises ``FlatDecodeUnsupported`` for wire arrays that don't embed in f32."""
-    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
+    Raises ``FlatDecodeUnsupported`` for wire arrays that don't embed in f32.
+
+    A full update whose members are stored is read in place: each leaf's
+    bytes in the blob are CRC-checked and copied once into the flat, a chunk
+    at a time (span ``decode.inplace``). Every other blob goes through
+    ``np.load``."""
+    blob = maybe_decompress(blob)
+    stored = _stored_leaves(blob)
+    if stored is None:
+        return _decode_params_flat_npz(blob, specs)
+    meta, members = stored
+    with child_span("decode.inplace"):
+        order = meta.pop("__order__")
+        dtypes = meta.pop("__dtypes__", {})
+        spec = _intern_spec(specs, order, dtypes, False,
+                            tuple(m.dtype.str for m in members.values()),
+                            {k: (m.shape, m.dtype) for k, m in members.items()})
+        flat = spec.empty_flat()
+        index, offsets, sizes = spec.index, spec.offsets, spec.sizes
+        view = memoryview(blob)
+        for k, m in members.items():
+            i = index[k.replace(_SEP, "/")]
+            o, n = offsets[i], sizes[i]
+            src, dst = np.frombuffer(blob, m.dtype, n, m.data), flat[o:o + n]
+            crc = zlib.crc32(view[m.start:m.data])  # the .npy header
+            step = _CHUNK // m.dtype.itemsize
+            for a in range(0, n, step):
+                part = src[a:a + step]
+                crc = zlib.crc32(part, crc)
+                dst[a:a + step] = part
+            _check_crc(crc, m, k)
+    return spec, flat, meta
+
+
+def _decode_params_flat_npz(blob: bytes, specs: dict) -> tuple[LeafSpec, np.ndarray, dict]:
+    """``decode_params_flat`` through ``np.load``: deflated and quantized
+    blobs, and any member that cannot be read in place."""
+    with np.load(io.BytesIO(blob)) as data:
         meta = _load_meta(data)
         order = meta.pop("__order__")
         dtypes = meta.pop("__dtypes__", {})
@@ -286,26 +459,8 @@ def decode_params_flat(blob: bytes, specs: dict) -> tuple[LeafSpec, np.ndarray, 
                     raise FlatDecodeUnsupported(
                         f"leaf {k!r} has wire dtype {a.dtype} (not f32-exact)")
         wire_dtypes = () if quantized else tuple(arrays[k].dtype.str for k in leaf_keys)
-        skey = _spec_table_key(order, dtypes, quantized, wire_dtypes)
-        spec = specs.get(skey)
-        drifted = False
-        if spec is not None:
-            # verify shapes still match the interned layout; drift → rebuild
-            wire = _wire_keys(spec)
-            if len(wire) != len(leaf_keys) or any(
-                tuple(arrays[k].shape) != spec.shapes[spec.index[k.replace(_SEP, "/")]]
-                for k in leaf_keys
-            ):
-                spec, drifted = None, True
-        if spec is None:
-            shapes_by_key = {k: (tuple(a.shape), a.dtype) for k, a in arrays.items()}
-            spec = _build_wire_spec(order, dtypes, shapes_by_key, quantized)
-            if drifted:
-                specs[skey] = spec  # replace the stale layout
-            else:
-                # setdefault: a racing decode (prefetch thread vs pull) must
-                # not intern two spec instances for one structure
-                spec = specs.setdefault(skey, spec)
+        spec = _intern_spec(specs, order, dtypes, quantized, wire_dtypes,
+                            {k: (tuple(a.shape), a.dtype) for k, a in arrays.items()})
         flat = spec.empty_flat()
         index, offsets, sizes = spec.index, spec.offsets, spec.sizes
         for k in leaf_keys:
