@@ -16,6 +16,7 @@ state, fleet-control and obs blobs, in the npz/zstd envelopes.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -209,18 +210,10 @@ def serialize_params(params: PyTree, meta: dict[str, Any] | None = None, *,
     return _pack_npz(arrays, order, dtypes, meta, compress=compress)
 
 
-def _load_meta(data) -> dict:
-    return json.loads(bytes(data[_META_KEY].tobytes()).decode())
-
-
-def deserialize_params(blob: bytes) -> tuple[PyTree, dict[str, Any]]:
-    """Returns (nested-dict numpy params, meta)."""
-    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
-        meta = _load_meta(data)
-        order = meta.pop("__order__")
-        dtypes = meta.pop("__dtypes__", {})
-        tree = _rebuild_tree(order, dtypes, lambda key: data[key])
-    return tree, meta
+def deserialize_params(blob: bytes | _Envelope) -> tuple[PyTree, dict[str, Any]]:
+    """Returns (nested-dict numpy params, meta); every array owns its memory."""
+    env = _open(blob)
+    return _rebuild_tree(env.order, env.dtypes, lambda key: env.array(key, own=True)), env.meta
 
 
 # --- flat decode: npz blob → one preallocated f32 vector ---------------------
@@ -293,15 +286,19 @@ def _intern_spec(specs: dict, order, dtypes, quantized: bool, wire_dtypes,
     return spec
 
 
-# A stored zip member's bytes are the .npy file itself, so a leaf can be read
-# where it lies in the blob: the central directory gives each member's local
-# header, the local header where its bytes start, and the .npy header the
-# array's dtype, shape and data offset.
+
+
+# --- the one envelope reader: every read of a blob goes through it ----------
+#
+# A stored zip member's bytes are the .npy file itself, so an array can be
+# read where it lies in the blob: the central directory gives each member's
+# local header, the local header where its bytes start, and the .npy header
+# the array's dtype, shape and data offset.
 _ZIP_LOCAL = struct.Struct("<4s22xHH")  # signature; name and extra-field lengths
 _ZIP_LOCAL_MAGIC = b"PK\x03\x04"
 _NPY_MAGIC = b"\x93NUMPY"
-_NPY_MAX_HEADER = 10000  # np.load's own limit on the header it parses
-# the header numpy writes for a C-order array; any other header keeps np.load
+_NPY_MAX_HEADER = 10000  # numpy's own limit on the .npy header it parses
+# the header numpy writes for a C-order array; any other header is read by numpy
 _NPY_HEAD = re.compile(r"\{'descr': '([^']+)', 'fortran_order': False, "
                        r"'shape': \((\d+(?:, \d+)*,?|)\), \} *\n")
 _CHUNK = 1 << 18  # bytes checked and copied at a time, while they are in cache
@@ -318,160 +315,146 @@ class _StoredArray(NamedTuple):
     shape: tuple
 
 
-def _stored_array(blob: bytes, z: zipfile.ZipFile, key: str) -> _StoredArray | None:
-    """The layout of member ``key`` when it can be read in place: stored,
-    unencrypted, a .npy header of version 1, 2 or 3 as numpy writes it for
-    a C-order array, and no trailing bytes. None for anything else."""
-    try:
-        info = z.getinfo(key + ".npy")
-    except KeyError:
-        return None
-    o = info.header_offset
-    if (info.compress_type != zipfile.ZIP_STORED or info.flag_bits & 1
-            or info.file_size < 12 or o + _ZIP_LOCAL.size > len(blob)):
-        return None
-    magic, n_name, n_extra = _ZIP_LOCAL.unpack_from(blob, o)
-    start = o + _ZIP_LOCAL.size + n_name + n_extra
-    end = start + info.file_size
-    if magic != _ZIP_LOCAL_MAGIC or end > len(blob) or blob[start:start + 6] != _NPY_MAGIC:
-        return None
-    major = blob[start + 6]
-    if major not in (1, 2, 3):
-        return None
-    at = start + (10 if major == 1 else 12)
-    n_head = int.from_bytes(blob[start + 8:at], "little")
-    if n_head > _NPY_MAX_HEADER:
-        return None
-    head = _NPY_HEAD.fullmatch(bytes(blob[at:at + n_head]).decode("latin1"))
-    if head is None:
-        return None
-    try:
-        dtype = np.dtype(head[1])
-    except (TypeError, ValueError):
-        return None
-    shape = tuple(int(d) for d in head[2].split(",") if d)
-    if at + n_head + math.prod(shape) * dtype.itemsize != end:
-        return None
-    return _StoredArray(start, end, info.CRC, at + n_head, dtype, shape)
-
-
 def _check_crc(crc: int, m: _StoredArray, key: str) -> None:
     """The zip reader's integrity check on a member read in place."""
     if crc != m.crc:
         raise zipfile.BadZipFile(f"Bad CRC-32 for file {key + '.npy'!r}")
 
 
-def _stored_meta(blob: bytes, z: zipfile.ZipFile) -> dict | None:
-    """The ``__meta__`` entry read in place, or None where it is not stored."""
-    m = _stored_array(blob, z, _META_KEY)
-    if m is None or m.dtype != np.uint8 or len(m.shape) != 1:
-        return None
-    view = memoryview(blob)
-    _check_crc(zlib.crc32(view[m.start:m.end]), m, _META_KEY)
-    return json.loads(bytes(view[m.data:m.end]).decode())
+class _Envelope:
+    """One wire blob, opened once: unwrapped from zstd, its central directory
+    parsed and its ``__meta__`` entry read. ``header`` is that entry as
+    written; ``meta`` is the same without ``order`` (the leaf keys) and
+    ``dtypes`` (the dtypes of leaves that ship as f32).
 
+    A member that is stored and C-order is read where it lies in the blob,
+    its CRC-32 checked over its bytes there; any other member is read as
+    numpy's npz loader reads it, through the zip reader, which checks the CRC."""
 
-def _stored_leaves(blob: bytes) -> tuple[dict, dict[str, _StoredArray]] | None:
-    """(meta, leaf key → layout) of a full-update blob whose meta and every
-    leaf can be read in place as f32-exact floats of this host's byte order;
-    None otherwise (deflated, quantized, delta, Fortran order, big-endian,
-    int or f64 leaves, or anything the parse cannot read)."""
-    if blob[:4] != _ZIP_LOCAL_MAGIC:
-        return None
-    try:
-        z = zipfile.ZipFile(io.BytesIO(blob))  # parses the central directory only
-    except zipfile.BadZipFile:
-        return None
-    with z:
-        meta = _stored_meta(blob, z)
-        if meta is None or meta.get("quantized") or "delta_of" in meta:
+    def __init__(self, blob: bytes):
+        blob = maybe_decompress(blob)
+        if blob[:4] != _ZIP_LOCAL_MAGIC:
+            raise ValueError("not an npz envelope")  # numpy's loader raises ValueError too
+        self.blob = blob
+        self.zip = zipfile.ZipFile(io.BytesIO(blob))  # parses the central directory only
+        self.files = {n[:-4] for n in self.zip.namelist() if n.endswith(".npy")}
+        self.header = json.loads(self.array(_META_KEY).tobytes().decode())
+        self.meta = dict(self.header)
+        self.order: list[str] = self.meta.pop("__order__")
+        self.dtypes: dict[str, str] = self.meta.pop("__dtypes__", {})
+
+    def stored(self, key: str) -> _StoredArray | None:
+        """Member ``key``'s layout where it can be read in place: stored,
+        unencrypted, a .npy header of version 1, 2 or 3 as numpy writes it
+        for a C-order array of this host's byte order without objects, and
+        no trailing bytes. None for anything else."""
+        blob = self.blob
+        try:
+            info = self.zip.getinfo(key + ".npy")
+        except KeyError:
             return None
-        order = meta.get("__order__")
-        if not isinstance(order, list):
+        o = info.header_offset
+        if (info.compress_type != zipfile.ZIP_STORED or info.flag_bits & 1
+                or info.file_size < 12 or o + _ZIP_LOCAL.size > len(blob)):
             return None
-        members = {}
-        for k in order:
-            m = _stored_array(blob, z, k)
-            if m is None or m.dtype.kind != "f" or m.dtype.itemsize > 4 or not m.dtype.isnative:
-                return None
-            members[k] = m
-    return meta, members
+        magic, n_name, n_extra = _ZIP_LOCAL.unpack_from(blob, o)
+        start = o + _ZIP_LOCAL.size + n_name + n_extra
+        end = start + info.file_size
+        if magic != _ZIP_LOCAL_MAGIC or end > len(blob) or blob[start:start + 6] != _NPY_MAGIC:
+            return None
+        major = blob[start + 6]
+        if major not in (1, 2, 3):
+            return None
+        at = start + (10 if major == 1 else 12)
+        n_head = int.from_bytes(blob[start + 8:at], "little")
+        if n_head > _NPY_MAX_HEADER:
+            return None
+        head = _NPY_HEAD.fullmatch(bytes(blob[at:at + n_head]).decode("latin1"))
+        if head is None:
+            return None
+        try:
+            dtype = np.dtype(head[1])
+        except (TypeError, ValueError):
+            return None
+        if not dtype.isnative or dtype.hasobject:
+            return None
+        shape = tuple(int(d) for d in head[2].split(",") if d)
+        if at + n_head + math.prod(shape) * dtype.itemsize != end:
+            return None
+        return _StoredArray(start, end, info.CRC, at + n_head, dtype, shape)
+
+    def array(self, key: str, *, own: bool = False) -> np.ndarray:
+        """Member ``key``, CRC-checked. An in-place member is a read-only
+        view of the blob unless ``own``; a member numpy reads owns its
+        memory."""
+        m = self.stored(key)
+        if m is None:
+            with self.zip.open(key + ".npy") as f:
+                return np.lib.format.read_array(f, allow_pickle=False)
+        _check_crc(zlib.crc32(memoryview(self.blob)[m.start:m.end]), m, key)
+        view = np.frombuffer(self.blob, m.dtype, math.prod(m.shape), m.data).reshape(m.shape)
+        return view.copy() if own else view
+
+    def copy_into(self, key: str, m: _StoredArray, dst: np.ndarray) -> None:
+        """Copy in-place member ``key`` into ``dst``, checking its CRC-32 on
+        the way, a chunk at a time while the bytes are in cache."""
+        src = np.frombuffer(self.blob, m.dtype, dst.size, m.data)
+        crc = zlib.crc32(memoryview(self.blob)[m.start:m.data])  # the .npy header
+        step = _CHUNK // m.dtype.itemsize
+        for a in range(0, dst.size, step):
+            part = src[a:a + step]
+            crc = zlib.crc32(part, crc)
+            dst[a:a + step] = part
+        _check_crc(crc, m, key)
 
 
-def decode_params_flat(blob: bytes, specs: dict) -> tuple[LeafSpec, np.ndarray, dict]:
+def _open(blob: bytes | _Envelope) -> _Envelope:
+    """The envelope of ``blob``; one a caller already opened is used as is."""
+    return blob if isinstance(blob, _Envelope) else _Envelope(blob)
+
+
+def decode_params_flat(blob: bytes | _Envelope,
+                       specs: dict) -> tuple[LeafSpec, np.ndarray, dict]:
     """Decode a full or quantized npz blob straight into one preallocated
     host f32 vector. ``specs`` is a caller-owned interning table (structure
     key → LeafSpec) so all updates of one model share a spec instance.
     Raises ``FlatDecodeUnsupported`` for wire arrays that don't embed in f32.
 
-    A full update whose members are stored is read in place: each leaf's
-    bytes in the blob are CRC-checked and copied once into the flat, a chunk
-    at a time (span ``decode.inplace``). Every other blob goes through
-    ``np.load``."""
-    blob = maybe_decompress(blob)
-    stored = _stored_leaves(blob)
-    if stored is None:
-        return _decode_params_flat_npz(blob, specs)
-    meta, members = stored
-    with child_span("decode.inplace"):
-        order = meta.pop("__order__")
-        dtypes = meta.pop("__dtypes__", {})
-        spec = _intern_spec(specs, order, dtypes, False,
-                            tuple(m.dtype.str for m in members.values()),
-                            {k: (m.shape, m.dtype) for k, m in members.items()})
+    A leaf member stored in place is CRC-checked and copied once into the
+    flat, a chunk at a time; a full update whose every leaf is read so
+    decodes inside the span ``decode.inplace``."""
+    env = _open(blob)
+    if "delta_of" in env.meta:
+        raise ValueError("delta blob: use deserialize_update_delta_flat")
+    quantized = bool(env.meta.get("quantized"))
+    if quantized:
+        # order lists the packed {"q":..., "s":...} tree; the spec
+        # describes the original structure (q-keys with prefix stripped)
+        members = {k[2:]: env.array(k) for k in env.order if k.startswith("q" + _SEP)}
+    else:
+        members = {k: env.stored(k) or env.array(k) for k in env.order}
+        for k, a in members.items():
+            if a.dtype.kind != "f" or a.dtype.itemsize > 4:
+                raise FlatDecodeUnsupported(
+                    f"leaf {k!r} has wire dtype {a.dtype} (not f32-exact)")
+    in_place = not quantized and all(isinstance(a, _StoredArray) for a in members.values())
+    with child_span("decode.inplace") if in_place else contextlib.nullcontext():
+        wire_dtypes = () if quantized else tuple(a.dtype.str for a in members.values())
+        spec = _intern_spec(specs, env.order, env.dtypes, quantized, wire_dtypes,
+                            {k: (tuple(a.shape), a.dtype) for k, a in members.items()})
         flat = spec.empty_flat()
         index, offsets, sizes = spec.index, spec.offsets, spec.sizes
-        view = memoryview(blob)
-        for k, m in members.items():
-            i = index[k.replace(_SEP, "/")]
-            o, n = offsets[i], sizes[i]
-            src, dst = np.frombuffer(blob, m.dtype, n, m.data), flat[o:o + n]
-            crc = zlib.crc32(view[m.start:m.data])  # the .npy header
-            step = _CHUNK // m.dtype.itemsize
-            for a in range(0, n, step):
-                part = src[a:a + step]
-                crc = zlib.crc32(part, crc)
-                dst[a:a + step] = part
-            _check_crc(crc, m, k)
-    return spec, flat, meta
-
-
-def _decode_params_flat_npz(blob: bytes, specs: dict) -> tuple[LeafSpec, np.ndarray, dict]:
-    """``decode_params_flat`` through ``np.load``: deflated and quantized
-    blobs, and any member that cannot be read in place."""
-    with np.load(io.BytesIO(blob)) as data:
-        meta = _load_meta(data)
-        order = meta.pop("__order__")
-        dtypes = meta.pop("__dtypes__", {})
-        if "delta_of" in meta:
-            raise ValueError("delta blob: use deserialize_update_delta_flat")
-        quantized = bool(meta.get("quantized"))
-        if quantized:
-            # order lists the packed {"q":..., "s":...} tree; the spec
-            # describes the original structure (q-keys with prefix stripped)
-            leaf_keys = [k[2:] for k in order if k.startswith("q" + _SEP)]
-            arrays = {k: data["q" + _SEP + k] for k in leaf_keys}
-        else:
-            leaf_keys = list(order)
-            arrays = {k: data[k] for k in leaf_keys}
-            for k, a in arrays.items():
-                if a.dtype.kind != "f" or a.dtype.itemsize > 4:
-                    raise FlatDecodeUnsupported(
-                        f"leaf {k!r} has wire dtype {a.dtype} (not f32-exact)")
-        wire_dtypes = () if quantized else tuple(arrays[k].dtype.str for k in leaf_keys)
-        spec = _intern_spec(specs, order, dtypes, quantized, wire_dtypes,
-                            {k: (tuple(a.shape), a.dtype) for k, a in arrays.items()})
-        flat = spec.empty_flat()
-        index, offsets, sizes = spec.index, spec.offsets, spec.sizes
-        for k in leaf_keys:
+        for k, a in members.items():
             i = index[k.replace(_SEP, "/")]
             o, n = offsets[i], sizes[i]
             if quantized:
-                np.multiply(arrays[k].reshape(-1), np.float32(data["s" + _SEP + k]),
+                np.multiply(a.reshape(-1), np.float32(env.array("s" + _SEP + k)),
                             out=flat[o:o + n], dtype=np.float32, casting="unsafe")
+            elif isinstance(a, _StoredArray):
+                env.copy_into(k, a, flat[o:o + n])
             else:
-                flat[o:o + n] = arrays[k].reshape(-1)
-    return spec, flat, meta
+                flat[o:o + n] = a.reshape(-1)
+    return spec, flat, env.meta
 
 
 def flat_update_from_meta(spec: LeafSpec, flat: np.ndarray,
@@ -487,10 +470,21 @@ def flat_update_from_meta(spec: LeafSpec, flat: np.ndarray,
     )
 
 
-def deserialize_update_flat(blob: bytes, specs: dict) -> FlatUpdate:
+def deserialize_update_flat(blob: bytes | _Envelope, specs: dict) -> FlatUpdate:
     """Full/quantized blob → FlatUpdate (see ``decode_params_flat``)."""
     spec, flat, meta = decode_params_flat(blob, specs)
     return flat_update_from_meta(spec, flat, meta)
+
+
+def decode_update(blob: bytes | _Envelope, specs: dict) -> NodeUpdate:
+    """A full or quantized blob as a ``FlatUpdate`` where its leaves embed
+    exactly in f32 (a quantized blob's dequantized leaves always do), else as
+    the tree ``NodeUpdate``."""
+    env = _open(blob)
+    try:
+        return deserialize_update_flat(env, specs)
+    except FlatDecodeUnsupported:
+        return deserialize_update(env)
 
 
 def _update_meta(update: NodeUpdate, **extra: Any) -> dict[str, Any]:
@@ -521,7 +515,7 @@ def serialize_update(update: NodeUpdate, *, compress: str = "none") -> bytes:
     return serialize_params(update.params, meta=_update_meta(update), compress=compress)
 
 
-def deserialize_update(blob: bytes) -> NodeUpdate:
+def deserialize_update(blob: bytes | _Envelope) -> NodeUpdate:
     params, meta = deserialize_params(blob)
     return _update_from_meta(params, meta)
 
@@ -533,8 +527,7 @@ def content_hash(blob: bytes) -> str:
 def peek_meta(blob: bytes) -> dict[str, Any]:
     """Read only the ``__meta__`` entry of a blob (cheap dispatch: full vs
     quantized vs delta) without materializing the weight arrays."""
-    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
-        return _load_meta(data)
+    return dict(_open(blob).header)
 
 
 # --- strategy-state recovery blobs (``state/<node>``) ------------------------
@@ -788,51 +781,48 @@ def delta_density(params: PyTree, base_params: PyTree) -> float:
     return changed / max(total, 1)
 
 
-def apply_update_delta_flat(blob: bytes, spec: LeafSpec,
+def apply_update_delta_flat(blob: bytes | _Envelope, spec: LeafSpec,
                             flat: np.ndarray) -> dict[str, Any]:
     """Apply a delta blob's entries *in place* on ``flat`` (which must hold
     the referenced base state); returns the blob's meta. In place, a chain walk
     rebuilds K links with one base copy. On a raised exception ``flat`` may be
     partly written: callers discard it (the exceptions signal a structure or
     dtype mismatch, never a transient)."""
-    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
-        meta = _load_meta(data)
-        if "delta_of" not in meta:
-            raise ValueError("not a delta blob")
-        order = meta.pop("__order__")
-        meta.pop("__dtypes__", None)
-        wire = _wire_keys(spec)
-        if len(order) != len(wire) or set(order) != set(wire):
-            raise ValueError("delta structure does not match the base spec")
-        files = set(data.files)
-        index, offsets, sizes = spec.index, spec.offsets, spec.sizes
-        for key in order:
-            i = index[key.replace(_SEP, "/")]
-            o, n = offsets[i], sizes[i]
-            if _DENSE + key in files:
-                arr = data[_DENSE + key]
-                if arr.size != n:
-                    raise ValueError(f"dense leaf {key!r}: {arr.size} vs {n}")
-                if _SCALE + key in files:  # dense int8-quantized leaf
-                    flat[o:o + n] = dequantize_leaf(arr.reshape(-1), data[_SCALE + key])
-                    continue
-                if arr.dtype.kind != "f" or arr.dtype.itemsize > 4:
-                    raise FlatDecodeUnsupported(
-                        f"leaf {key!r} has wire dtype {arr.dtype} (not f32-exact)")
-                flat[o:o + n] = arr.reshape(-1)
+    env = _open(blob)
+    if "delta_of" not in env.meta:
+        raise ValueError("not a delta blob")
+    wire = _wire_keys(spec)
+    if len(env.order) != len(wire) or set(env.order) != set(wire):
+        raise ValueError("delta structure does not match the base spec")
+    files = env.files
+    index, offsets, sizes = spec.index, spec.offsets, spec.sizes
+    for key in env.order:
+        i = index[key.replace(_SEP, "/")]
+        o, n = offsets[i], sizes[i]
+        if _DENSE + key in files:
+            arr = env.array(_DENSE + key)
+            if arr.size != n:
+                raise ValueError(f"dense leaf {key!r}: {arr.size} vs {n}")
+            if _SCALE + key in files:  # dense int8-quantized leaf
+                flat[o:o + n] = dequantize_leaf(arr.reshape(-1), env.array(_SCALE + key))
                 continue
-            idx = data[_IDX + key]
-            vals = data[_VAL + key]
-            if _SCALE + key in files:
-                vals = dequantize_leaf(vals, data[_SCALE + key])
-            elif vals.size and (vals.dtype.kind != "f" or vals.dtype.itemsize > 4):
+            if arr.dtype.kind != "f" or arr.dtype.itemsize > 4:
                 raise FlatDecodeUnsupported(
-                    f"leaf {key!r} delta values have wire dtype {vals.dtype}")
-            flat[o + idx] = vals
-    return meta
+                    f"leaf {key!r} has wire dtype {arr.dtype} (not f32-exact)")
+            flat[o:o + n] = arr.reshape(-1)
+            continue
+        idx = env.array(_IDX + key)
+        vals = env.array(_VAL + key)
+        if _SCALE + key in files:
+            vals = dequantize_leaf(vals, env.array(_SCALE + key))
+        elif vals.size and (vals.dtype.kind != "f" or vals.dtype.itemsize > 4):
+            raise FlatDecodeUnsupported(
+                f"leaf {key!r} delta values have wire dtype {vals.dtype}")
+        flat[o + idx] = vals
+    return env.meta
 
 
-def deserialize_update_delta_flat(blob: bytes, spec: LeafSpec,
+def deserialize_update_delta_flat(blob: bytes | _Envelope, spec: LeafSpec,
                                   base_flat: np.ndarray) -> FlatUpdate:
     """A FlatUpdate from a delta blob, applied on a copy of the flat base
     vector. Raises ValueError when the blob's structure does not match
@@ -945,33 +935,27 @@ def serialize_update_delta(
                      compress=compress)
 
 
-def deserialize_update_delta(blob: bytes, base_params: PyTree) -> NodeUpdate:
+def deserialize_update_delta(blob: bytes | _Envelope, base_params: PyTree) -> NodeUpdate:
     """A full NodeUpdate from a delta blob and the base params it was diffed
     against (the caller matches ``delta_of`` to the base blob's hash)."""
     base = _flat_wire(base_params)
-    with np.load(io.BytesIO(maybe_decompress(blob))) as data:
-        meta = _load_meta(data)
-        if "delta_of" not in meta:
-            raise ValueError("not a delta blob")
-        order = meta.pop("__order__")
-        dtypes = meta.pop("__dtypes__", {})
+    env = _open(blob)
+    if "delta_of" not in env.meta:
+        raise ValueError("not a delta blob")
 
-        def reconstruct(key: str) -> np.ndarray:
-            if _DENSE + key in data.files:
-                arr = data[_DENSE + key]
-                if _SCALE + key in data.files:  # dense int8-quantized leaf
-                    arr = dequantize_leaf(arr, data[_SCALE + key])
-                return arr
-            if key not in base:
-                raise DeltaBaseMismatch(f"base is missing leaf {key!r}")
-            b = base[key][0]
-            flat = np.array(b, copy=True).reshape(-1)
-            idx = data[_IDX + key]
-            vals = data[_VAL + key]
-            if _SCALE + key in data.files:
-                vals = dequantize_leaf(vals, data[_SCALE + key])
-            flat[idx] = vals.astype(flat.dtype, copy=False)
-            return flat.reshape(b.shape)
+    def reconstruct(key: str) -> np.ndarray:
+        if _DENSE + key in env.files:
+            if _SCALE + key in env.files:  # dense int8-quantized leaf
+                return dequantize_leaf(env.array(_DENSE + key), env.array(_SCALE + key))
+            return env.array(_DENSE + key, own=True)
+        if key not in base:
+            raise DeltaBaseMismatch(f"base is missing leaf {key!r}")
+        b = base[key][0]
+        flat = np.array(b, copy=True).reshape(-1)
+        vals = env.array(_VAL + key)
+        if _SCALE + key in env.files:
+            vals = dequantize_leaf(vals, env.array(_SCALE + key))
+        flat[env.array(_IDX + key)] = vals.astype(flat.dtype, copy=False)
+        return flat.reshape(b.shape)
 
-        tree = _rebuild_tree(order, dtypes, reconstruct)
-    return _update_from_meta(tree, meta)
+    return _update_from_meta(_rebuild_tree(env.order, env.dtypes, reconstruct), env.meta)

@@ -42,19 +42,15 @@ from typing import Any
 import numpy as np
 
 from .serialize import (
-    FlatDecodeUnsupported,
+    FlatUpdate,
     NodeUpdate,
+    _Envelope,
     apply_update_delta_flat,
     canonicalize_params,
     content_hash,
-    decode_params_flat,
-    deserialize_update,
+    decode_update,
     deserialize_update_delta,
     deserialize_update_delta_flat,
-    deserialize_update_quantized,
-    flat_update_from_meta,
-    maybe_decompress,
-    peek_meta,
     serialize_group_summary,
     serialize_super_summary,
     serialize_update,
@@ -523,9 +519,10 @@ def _deposit_base(update: NodeUpdate, ctx: StoreContext, *, compress: str,
 
 class Codec:
     """One wire policy. ``encode`` owns the write side (side deposits, bases
-    and chain links, and their GC included); the read side is the static
-    ``decode_wire`` hooks, dispatched on the blob's own meta by
-    ``TransportPipeline.decode``."""
+    and chain links, and their GC included). The read side is
+    ``TransportPipeline.decode``, which dispatches on the blob's own meta:
+    a delta to ``DeltaCodec.decode_wire``, any other blob to
+    ``serialize.decode_update``."""
 
     name = "codec"
 
@@ -554,14 +551,6 @@ class FullCodec(Codec):
         ctx.put(f"latest/{update.node_id}", blob)
         return blob, False
 
-    @staticmethod
-    def decode_wire(blob: bytes, meta: dict, ctx: StoreContext) -> NodeUpdate:
-        try:
-            spec, flat, m = decode_params_flat(blob, ctx.specs)
-            return flat_update_from_meta(spec, flat, m)
-        except FlatDecodeUnsupported:
-            return deserialize_update(blob)
-
 
 class QuantizedCodec(Codec):
     name = "quantized"
@@ -570,14 +559,6 @@ class QuantizedCodec(Codec):
         blob = serialize_update_quantized(update, compress=self.compress)
         ctx.put(f"latest/{update.node_id}", blob)
         return blob, False
-
-    @staticmethod
-    def decode_wire(blob: bytes, meta: dict, ctx: StoreContext) -> NodeUpdate:
-        try:
-            spec, flat, m = decode_params_flat(blob, ctx.specs)
-            return flat_update_from_meta(spec, flat, m)
-        except FlatDecodeUnsupported:
-            return deserialize_update_quantized(blob)
 
 
 class _ChainState:
@@ -754,22 +735,19 @@ class DeltaCodec(Codec):
             raw = ctx.get(f"base/{node_id}/{cur}")
             # hash the RAW fetched bytes: writers hash what they deposit
             if raw is not None and content_hash(raw) == cur:
-                blob = maybe_decompress(raw)
-                try:
-                    spec, flat, _ = decode_params_flat(blob, ctx.specs)
-                    state = (spec, flat)
-                except FlatDecodeUnsupported:
-                    state = (None, deserialize_update(blob).params)
+                base = decode_update(raw, ctx.specs)
+                state = ((base.spec, base.flat) if isinstance(base, FlatUpdate)
+                         else (None, base.params))
                 ctx.decoded_bases.put(cur, state)
                 break
             raw = ctx.get(f"chain/{node_id}/{cur}")
             if raw is None or content_hash(raw) != cur:
                 return None
-            blob = maybe_decompress(raw)
-            prev = peek_meta(blob).get("delta_of")
+            env = _Envelope(raw)
+            prev = env.meta.get("delta_of")
             if not prev or len(pending) >= _MAX_RESOLVE_HOPS:
                 return None
-            pending.append((cur, blob))
+            pending.append((cur, env))
             cur = prev
         hops = len(pending)
         if hops:
@@ -780,14 +758,14 @@ class DeltaCodec(Codec):
                 # costs one copy plus K sparse scatters
                 flat = np.array(base_state, dtype=np.float32, copy=True)
                 try:
-                    for _bh, blob in reversed(pending):
-                        apply_update_delta_flat(blob, spec, flat)
+                    for _bh, env in reversed(pending):
+                        apply_update_delta_flat(env, spec, flat)
                     resolved = (spec, flat)
-                except (FlatDecodeUnsupported, ValueError):
-                    resolved = None  # odd dtypes or drift: per-hop fallback
+                except ValueError:  # odd dtypes or drift: per-hop fallback
+                    resolved = None
             if resolved is None:
-                for _bh, blob in reversed(pending):
-                    state = DeltaCodec._apply(blob, state)
+                for _bh, env in reversed(pending):
+                    state = DeltaCodec._apply(env, state)
                     if state is None:
                         return None
                 resolved = state
@@ -799,39 +777,39 @@ class DeltaCodec(Codec):
         return state
 
     @staticmethod
-    def _apply(blob: bytes, state):
-        """Apply one (decompressed) delta blob on a resolved state."""
+    def _apply(env: _Envelope, state):
+        """Apply one opened delta blob on a resolved state."""
         spec, base_state = state
         if spec is not None:
             try:
-                upd = deserialize_update_delta_flat(blob, spec, base_state)
+                upd = deserialize_update_delta_flat(env, spec, base_state)
                 return (spec, upd.flat)
             except ValueError:  # odd-dtype values or structure drift: tree path
                 pass
             base_state = spec.unflatten(base_state)
         try:
-            return (None, deserialize_update_delta(blob, base_state).params)
+            return (None, deserialize_update_delta(env, base_state).params)
         except Exception:
             return None
 
     @staticmethod
-    def decode_wire(blob: bytes, meta: dict, ctx: StoreContext,
-                    node_id: str, raw_hash: str | None = None) -> NodeUpdate | None:
-        state = DeltaCodec.resolve_state(node_id, meta["delta_of"], ctx)
+    def decode_wire(env: _Envelope, ctx: StoreContext, node_id: str,
+                    raw_hash: str | None = None) -> NodeUpdate | None:
+        state = DeltaCodec.resolve_state(node_id, env.meta["delta_of"], ctx)
         if state is None:
             return None
         spec, base_state = state
         if spec is not None:
             try:
-                upd = deserialize_update_delta_flat(blob, spec, base_state)
+                upd = deserialize_update_delta_flat(env, spec, base_state)
                 if raw_hash is not None:
                     # the writer's next link may reference this very blob
                     ctx.decoded_bases.put(raw_hash, (spec, upd.flat))
                 return upd
-            except ValueError:  # FlatDecodeUnsupported included: tree path
+            except ValueError:  # odd-dtype values or structure drift: tree path
                 pass
             base_state = spec.unflatten(base_state)
-        return deserialize_update_delta(blob, base_state)
+        return deserialize_update_delta(env, base_state)
 
 
 class TopKCodec(Codec):
@@ -1103,17 +1081,12 @@ class TransportPipeline:
             return self._decode(blob, node_id, ctx)
 
     def _decode(self, blob: bytes, node_id: str, ctx: StoreContext) -> NodeUpdate | None:
-        raw = blob
-        blob = maybe_decompress(blob)  # once, up front
-        meta = peek_meta(blob)
-        if meta.get("delta_of"):
+        env = _Envelope(blob)  # the one open of this blob
+        if env.meta.get("delta_of"):
             # hash the RAW bytes: a chain link's successor names this blob by
             # the hash of what its writer deposited
-            return DeltaCodec.decode_wire(blob, meta, ctx, node_id,
-                                          raw_hash=content_hash(raw))
-        if meta.get("quantized"):
-            return QuantizedCodec.decode_wire(blob, meta, ctx)
-        return FullCodec.decode_wire(blob, meta, ctx)
+            return DeltaCodec.decode_wire(env, ctx, node_id, raw_hash=content_hash(blob))
+        return decode_update(env, ctx.specs)
 
     def reset(self) -> None:
         self.policy.reset()

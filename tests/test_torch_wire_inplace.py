@@ -1,18 +1,22 @@
-"""The port's flat decode reads a full update's stored npz members in place.
+"""The port's wire reader reads a blob's stored npz members in place.
 
-``decode_params_flat`` locates each stored, C-order leaf member from the zip's
-central directory and its local header, checks the member's CRC-32 over its
-bytes in the blob and copies the leaf once into the flat (span
-``decode.inplace``). These tests hold that path to the ``np.load`` path it
-replaces, bit for bit, on every blob shape the wire carries; check that
-deflated, quantized, Fortran-order and big-endian blobs, and headers numpy
-does not write, still take ``np.load``; and that a flipped byte fails the
-CRC as ``np.load`` does.
+Every reader of a blob opens it once: the zip's central directory locates
+each stored, C-order member, whose CRC-32 is checked over its bytes in the
+blob; any other member is read as ``np.load`` reads it. ``decode_params_flat``
+copies a full update's in-place leaves once into the flat (span
+``decode.inplace``). These tests hold the flat decode, bit for bit, to a flat
+built from ``np.load``'s arrays and to the reference package, on every blob
+shape the wire carries; check that deflated, quantized, Fortran-order and
+big-endian blobs, and headers numpy does not write, decode outside that span;
+that a flipped byte fails the CRC as ``np.load`` does; and that the tree
+readers, on the stored, deflated and zstd envelopes, equal ``np.load`` and
+the reference and hand out arrays that own their memory.
 """
 from __future__ import annotations
 
 import io
 import json
+import struct
 import zipfile
 
 import numpy as np
@@ -160,12 +164,36 @@ def _decode_traced(blob: bytes, specs: dict):
     return (*out, [name for name, *_ in tel.recorder.drain()])
 
 
-def _assert_same(a, b):
-    (spec_a, flat_a, meta_a), (spec_b, flat_b, meta_b) = a, b
-    assert spec_a.key == spec_b.key and spec_a.paths == spec_b.paths
-    assert flat_a.dtype == flat_b.dtype == np.float32
-    np.testing.assert_array_equal(flat_a.view(np.uint32), flat_b.view(np.uint32))
-    assert meta_a == meta_b
+def _np_load(blob: bytes) -> tuple[dict, dict[str, np.ndarray]]:
+    """(the ``__meta__`` entry as written, every other member) read by np.load."""
+    with np.load(io.BytesIO(jser.maybe_decompress(blob))) as data:
+        return (json.loads(data["__meta__"].tobytes()),
+                {k: data[k] for k in data.files if k != "__meta__"})
+
+
+def _assert_flat_as_np_load(decoded, blob: bytes):
+    """``decoded`` (spec, flat, meta) against the reference package's flat
+    decode and a flat built here from np.load's arrays in that spec's leaf
+    order, dequantized where the blob is quantized."""
+    spec, flat, meta = decoded
+    j_spec, j_flat, j_meta = jser.decode_params_flat(blob, {})
+    assert spec.key == j_spec.key and spec.paths == j_spec.paths
+    header, arrays = _np_load(blob)
+    order = header.pop("__order__")
+    header.pop("__dtypes__", None)
+    leaves = []
+    for path, shape in zip(j_spec.paths, j_spec.shapes):
+        k = path.replace("/", "|")
+        assert k in order or "q|" + k in order
+        a = (arrays["q|" + k].astype(np.float32) * np.float32(arrays["s|" + k])
+             if header.get("quantized") else arrays[k].astype(np.float32))
+        assert a.shape == tuple(shape)
+        leaves.append(a.reshape(-1))
+    expected = np.concatenate(leaves) if leaves else np.zeros(0, np.float32)
+    assert flat.dtype == np.float32
+    for other in (expected, j_flat):
+        np.testing.assert_array_equal(flat.view(np.uint32), other.view(np.uint32))
+    assert meta == header == j_meta
 
 
 @pytest.mark.parametrize("case", sorted(IN_PLACE))
@@ -174,11 +202,8 @@ def test_in_place_read_equals_np_load_bit_for_bit(case):
     specs: dict = {}
     spec, flat, meta, names = _decode_traced(blob, specs)
     assert names.count("decode.inplace") == 1
-    _assert_same((spec, flat, meta), tser._decode_params_flat_npz(tser.maybe_decompress(blob), {}))
-    # the reference package's decode agrees, and the interned spec is reused
-    j_spec, j_flat, j_meta = jser.decode_params_flat(blob, {})
-    assert j_spec.key == spec.key and j_meta == meta
-    np.testing.assert_array_equal(j_flat, flat)
+    _assert_flat_as_np_load((spec, flat, meta), blob)
+    # the interned spec is reused
     again, flat2, _ = tser.decode_params_flat(blob, specs)
     assert again is spec and flat2 is not flat
     assert tser.peek_meta(blob) == jser.peek_meta(jser.maybe_decompress(blob))
@@ -187,20 +212,21 @@ def test_in_place_read_equals_np_load_bit_for_bit(case):
 @pytest.mark.parametrize("case", sorted(FALLBACK))
 def test_fallbacks_decode_as_before_through_np_load(case):
     blob = FALLBACK[case](np.random.default_rng(len(case)))
-    assert tser._stored_leaves(tser.maybe_decompress(blob)) is None
     spec, flat, meta, names = _decode_traced(blob, {})
     assert "decode.inplace" not in names
-    _assert_same((spec, flat, meta), tser._decode_params_flat_npz(blob, {}))
-    j_spec, j_flat, _ = jser.decode_params_flat(blob, {})
-    assert j_spec.key == spec.key
-    np.testing.assert_array_equal(j_flat, flat)
+    _assert_flat_as_np_load((spec, flat, meta), blob)
 
 
 def _member_data(blob: bytes, key: str) -> tuple[int, int]:
-    """(first, last + 1) byte of member ``key``'s array data in the blob."""
+    """(first, last + 1) byte of stored member ``key``'s array data in the blob."""
     with zipfile.ZipFile(io.BytesIO(blob)) as z:
-        m = tser._stored_array(blob, z, key)
-    return m.data, m.end
+        info = z.getinfo(key + ".npy")
+    n_name, n_extra = struct.unpack_from("<26xHH", blob, info.header_offset)
+    start = info.header_offset + 30 + n_name + n_extra
+    npy = io.BytesIO(blob[start:start + info.file_size])
+    np.lib.format.read_array_header_1_0(npy) if np.lib.format.read_magic(npy) == (1, 0) \
+        else np.lib.format.read_array_header_2_0(npy)
+    return start + npy.tell(), start + info.file_size
 
 
 @pytest.mark.parametrize("key,where", [("conv|b", "first"), ("dense|w", "middle"),
@@ -211,10 +237,152 @@ def test_a_flipped_byte_fails_the_crc(key, where):
     at = {"first": a, "middle": (a + b) // 2, "last": b - 1}[where]
     blob[at] ^= 0x10
     blob = bytes(blob)
-    with pytest.raises(zipfile.BadZipFile, match="CRC"):
-        tser.decode_params_flat(blob, {})
-    with pytest.raises(zipfile.BadZipFile, match="CRC"):
-        tser._decode_params_flat_npz(blob, {})
+    for read in (lambda: tser.decode_params_flat(blob, {}), lambda: tser.deserialize_params(blob),
+                 lambda: np.load(io.BytesIO(blob))[key]):
+        with pytest.raises(zipfile.BadZipFile, match="CRC"):
+            read()
     if key == "__meta__":
         with pytest.raises(zipfile.BadZipFile, match="CRC"):
             tser.peek_meta(blob)
+
+
+# --- the tree readers, on each envelope ---------------------------------------
+
+
+def _by_key(tree, prefix="") -> dict:
+    """A nested-dict tree's leaves under their wire keys ('a|b')."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_by_key(v, prefix + k + "|"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _owns_memory(a: np.ndarray) -> bool:
+    """Writable, and its memory is an array's own (never a view of a blob)."""
+    writable = a.flags.writeable
+    while isinstance(a.base, np.ndarray):
+        a = a.base
+    return writable and a.flags.owndata
+
+
+def _assert_tree(tree: dict, *expected: dict):
+    got = _by_key(tree)
+    for exp in expected:
+        assert set(got) == set(exp)
+        for k, a in got.items():
+            assert isinstance(a, np.ndarray) and _owns_memory(a), k
+            assert a.dtype == exp[k].dtype and a.shape == exp[k].shape, k
+            assert a.tobytes() == exp[k].tobytes(), k
+
+
+def _tree(rng) -> dict:
+    """Leaves of every width a flat decode refuses or accepts."""
+    return {"conv": {"w": rng.normal(size=(3, 3, 2, 4)).astype(np.float32),
+                     "b": rng.normal(size=(4,)).astype(np.float16)},
+            "dense": {"w": rng.normal(size=(300, 300)).astype(np.float32)},
+            "steps": np.arange(6, dtype=np.int32).reshape(2, 3),
+            "scale": np.float64(rng.normal())}
+
+
+def _float_tree(rng) -> dict:
+    tree = _tree(rng)
+    del tree["steps"], tree["scale"]
+    return tree
+
+
+def _next(tree: dict, rng) -> dict:
+    """``tree`` with a sparse change in one leaf and every entry of another changed."""
+    new = {"conv": {"w": tree["conv"]["w"] + 1, "b": tree["conv"]["b"].copy()},
+           "dense": {"w": tree["dense"]["w"].copy()}}
+    new["dense"]["w"][rng.integers(0, 300, 5), rng.integers(0, 300, 5)] = 7.0
+    return new
+
+
+def _delta(rng, compress):
+    base = _float_tree(rng)
+    base_blob = tser.serialize_update(NodeUpdate(base, **META), compress=compress)
+    blob = tser.serialize_update_delta(NodeUpdate(_next(base, rng), **META), base,
+                                       tser.content_hash(base_blob), compress=compress)
+    return base, base_blob, blob
+
+
+def _np_load_delta(blob: bytes, base: dict) -> dict:
+    """The delta applied on ``base``, leaf by leaf, from np.load's arrays."""
+    header, arrays = _np_load(blob)
+    out = {}
+    for k, b in _by_key(base).items():
+        if "d|" + k in arrays:
+            out[k] = arrays["d|" + k]
+            continue
+        flat = np.array(b).reshape(-1)
+        flat[arrays["i|" + k]] = arrays["v|" + k]
+        out[k] = flat.reshape(b.shape)
+    return out
+
+
+def _read_peek_meta(rng, compress):
+    blob = tser.serialize_update(NodeUpdate(_tree(rng), **META), compress=compress)
+    meta = tser.peek_meta(blob)
+    assert meta == _np_load(blob)[0] == jser.peek_meta(jser.maybe_decompress(blob))
+    assert meta["__order__"] and meta["node_id"] == "peer"
+
+
+def _read_params(rng, compress):
+    blob = tser.serialize_update(NodeUpdate(_tree(rng), **META), compress=compress)
+    tree, meta = tser.deserialize_params(blob)
+    j_tree, j_meta = jser.deserialize_params(blob)
+    assert meta == j_meta and "__order__" not in meta
+    _assert_tree(tree, _np_load(blob)[1], _by_key(j_tree))
+
+
+def _read_quantized(rng, compress):
+    blob = tser.serialize_update_quantized(NodeUpdate(_float_tree(rng), **META),
+                                           compress=compress)
+    upd, j_upd = tser.deserialize_update_quantized(blob), jser.deserialize_update_quantized(blob)
+    assert (upd.node_id, upd.counter, upd.num_examples) == (j_upd.node_id, j_upd.counter, 7)
+    arrays = _np_load(blob)[1]
+    expected = {k[2:]: a.astype(np.float32) * np.float32(arrays["s|" + k[2:]])
+                for k, a in arrays.items() if k.startswith("q|")}
+    _assert_tree(upd.params, expected, _by_key(j_upd.params))
+
+
+def _read_delta_flat(rng, compress):
+    base, base_blob, blob = _delta(rng, compress)
+    spec, base_flat, _ = tser.decode_params_flat(base_blob, {})
+    flat = base_flat.copy()
+    meta = tser.apply_update_delta_flat(blob, spec, flat)
+    j_spec, j_flat, _ = jser.decode_params_flat(base_blob, {})
+    j_meta = jser.apply_update_delta_flat(blob, j_spec, j_flat)
+    assert meta == j_meta and meta["delta_of"] == tser.content_hash(base_blob)
+    expected = _np_load_delta(blob, base)
+    expected = np.concatenate([expected[p.replace("/", "|")].astype(np.float32).reshape(-1)
+                               for p in spec.paths])
+    for other in (expected, j_flat):
+        np.testing.assert_array_equal(flat.view(np.uint32), other.view(np.uint32))
+
+
+def _read_delta_tree(rng, compress):
+    base, _, blob = _delta(rng, compress)
+    header, arrays = _np_load(blob)
+    assert any(k.startswith("d|") for k in arrays) and any(k.startswith("i|") for k in arrays)
+    upd, j_upd = tser.deserialize_update_delta(blob, base), jser.deserialize_update_delta(blob, base)
+    assert upd.metrics == j_upd.metrics and upd.counter == j_upd.counter
+    _assert_tree(upd.params, _np_load_delta(blob, base), _by_key(j_upd.params))
+
+
+TREE_READERS = {
+    "peek_meta": _read_peek_meta,
+    "deserialize_params": _read_params,
+    "deserialize_update_quantized": _read_quantized,
+    "apply_update_delta_flat": _read_delta_flat,
+    "deserialize_update_delta": _read_delta_tree,
+}
+
+
+@pytest.mark.parametrize("compress", tser.COMPRESSIONS)
+@pytest.mark.parametrize("reader", sorted(TREE_READERS))
+def test_readers_equal_np_load_and_the_reference_on_every_envelope(reader, compress):
+    TREE_READERS[reader](np.random.default_rng(len(reader)), compress)
