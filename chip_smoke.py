@@ -28,7 +28,9 @@ main paths end to end:
   ``decode_attention`` per token);
 * the same for the reference's serving default, mamba2-130m at full width
   (bf16, all 24 layers), with batches of 8 prompts x 2048 tokens (``ssd_scan``
-  in every layer of the bulk prefill);
+  between ``ssm_prefill_in`` and ``ssm_prefill_out`` in every layer of the
+  bulk prefill; those two also checked and timed at the long-prompt
+  benchmark cells' shapes);
 * the two LM examples: ``repro_torch.examples.federated_llm`` at its full
   widths (three async nodes train a 63.68M-parameter LoRA decoder through a
   ``delta(chain=4)`` store, then federate the adapters alone) and
@@ -224,6 +226,15 @@ EXAMPLE_SCAN_FLEETS, EXAMPLE_TAIL_LINES, EXAMPLE_PREFILL_REPS = (200, 2000), 6, 
 SSD_SWEEPS = [(2, 128, 64, 32, 32), (3, 256, 64, 128, 64), (1, 512, 128, 64, 128),
               (2, 256, 64, 128, 256)]  # BH, S, P, N, chunk
 SSD_TOL = 1e-4
+# The Mamba2 bulk prefill's two elementwise kernels (ssm_prefill_in and
+# ssm_prefill_out) are held against their plain composition and timed, bf16,
+# at (arch, B, S): the Mamba2 serving phase's prefill and the two prefills of
+# the benchmark's long-prompt cells, mamba2-130m at 8 x 8,192
+# (mamba2.long_prompts) and granite-4.0-h-micro's Mamba2 layers at 4 x 32,768
+# (granite4h.long_docs). Every output, the new conv cache included, equal to
+# the plain version's bit for bit.
+PREFILL_SHAPES = [(SSM_ARCH, SSM_B, SSM_S), ("mamba2-130m", 8, 8192),
+                  ("granite-4.0-h-micro", 4, 32768)]
 # Attention checks: the reference's sweeps (tests/test_kernels.py), the
 # serving path's shapes, ragged S / C and windows.
 FLASH_CHECK = [  # B, S, KV, G, hd, window
@@ -256,7 +267,8 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference's own
 # the outputs are ~0.01, under a plain 2e-2, which zeros would meet.
 # Each port kernel's function name in a profiler trace.
 KERNEL_SYMBOLS = {"flash_attention": "flash_mma_kernel", "decode_attention": "decode_split_kernel",
-                  "ssd_scan": "ssd_mma_kernel"}
+                  "ssd_scan": "ssd_mma_kernel", "ssm_prefill_in": "ssm_prefill_in_kernel",
+                  "ssm_prefill_out": "ssm_prefill_out_kernel"}
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s, and the f32 rate
 # outside the tensor cores (the fed kernels' arithmetic), flop/s.
@@ -830,6 +842,134 @@ def time_ssd(dev, gen, card) -> list:
     return timings
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 units in the last place between two bf16
+    tensors (their bit patterns as ordered integers; +0 and -0 are one value)."""
+    def ordinal(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordinal(a) - ordinal(b)).abs().max())
+
+
+def prefill_case(dev, gen, arch: str, B: int, S: int) -> tuple[dict, dict, int]:
+    """One Mamba2 mixer's prefill inputs at ``arch``'s widths in bf16, drawn
+    around the model's init: the x/B/C projections and raw dt N(0, 1), a
+    seeded conv cache, conv_w/conv_b N(0, 0.1^2), dt_bias N(0, 0.5^2),
+    A_log = log(1..H); then the scan's y and z N(0, 1), D 1 + N(0, 0.1^2) and
+    the norm's scale 1 + N(0, 0.1^2). → (prefill_in's arguments,
+    prefill_out's besides xh, head_dim)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import _dims
+
+    cfg = get_config(arch)
+    d_inner, H, N = _dims(cfg)
+    P, C = cfg.ssm_head_dim, d_inner + 2 * N
+
+    def rand(*shape, s=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * s).to(torch.bfloat16)
+
+    a = dict(xs=rand(B, S, d_inner), Bp=rand(B, S, N), Cp=rand(B, S, N), dt_raw=rand(B, S, H),
+             conv_cache=rand(B, cfg.ssm_conv - 1, C), conv_w=rand(cfg.ssm_conv, C, s=0.1),
+             conv_b=rand(C, s=0.1), dt_bias=torch.randn(H, device=dev, generator=gen) * 0.5,
+             A_log=torch.log(torch.arange(1, H + 1, dtype=torch.float32, device=dev)))
+    o = dict(y=rand(B, S, H, P), z=rand(B, S, d_inner),
+             D=1 + 0.1 * torch.randn(H, device=dev, generator=gen),
+             scale=(1 + 0.1 * torch.randn(d_inner, device=dev, generator=gen)).to(torch.bfloat16),
+             eps=cfg.norm_eps)
+    return a, o, P
+
+
+def check_ssm_prefill(dev, gen) -> tuple[list, dict]:
+    """ssm_prefill_in and ssm_prefill_out against their plain composition
+    (``kernels/ssm_prefill/ref.py``, on the card) at PREFILL_SHAPES: xh, xdt,
+    dA, B, C, the new conv cache and the out_proj input (from the kernel's
+    own xh) equal bit for bit; each distance is recorded. Raises on a miss;
+    → (checks, the largest abs error of each kernel)."""
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+    from repro_torch.kernels.ssm_prefill import ref
+
+    checks, max_err = [], {"ssm_prefill_in": 0.0, "ssm_prefill_out": 0.0}
+    for arch, B, S in PREFILL_SHAPES:
+        a, o, P = prefill_case(dev, gen, arch, B, S)
+        want_cache = a["conv_cache"].clone()
+        want = ref.prefill_in(**{**a, "conv_cache": want_cache}, head_dim=P)
+        got = pk.prefill_in(**a, head_dim=P)
+        got_out = pk.prefill_out(o["y"], got[0], o["z"], o["D"], o["scale"], o["eps"])
+        want_out = ref.prefill_out(o["y"], got[0], o["z"], o["D"], o["scale"], o["eps"])
+        torch.cuda.synchronize()
+        pairs = [("ssm_prefill_in", n, g, w.contiguous())
+                 for n, g, w in zip(("xh", "xdt", "dA", "Bm", "Cm"), got, want)]
+        pairs += [("ssm_prefill_in", "conv_cache", a["conv_cache"], want_cache),
+                  ("ssm_prefill_out", "out", got_out, want_out)]
+        for kernel, name, g, w in pairs:
+            err = float((g.float() - w.float()).abs().max())
+            ok = bool(torch.equal(g, w)) and bool(torch.isfinite(g.float()).all())
+            checks.append({"kernel": kernel, "output": name, "model": arch,
+                           "shape": f"B={B} S={S}", "max_abs_err": err, "limit": "bit for bit",
+                           **({"max_ulps": bf16_ulps(g, w)} if g.dtype == torch.bfloat16
+                              else {}), "ok": ok})
+            max_err[kernel] = max(max_err[kernel], err)
+            if not ok:
+                raise AssertionError(f"{kernel} {name} {arch} B={B} S={S}: not the plain "
+                                     f"version's bits (max abs err {err})")
+        del a, o, got, want, got_out, want_out, want_cache
+    torch.cuda.synchronize()
+    return checks, max_err
+
+
+def prefill_bytes(B: int, S: int, d_inner: int, N: int, H: int, C: int, K: int) -> dict:
+    """Least bytes of each kernel, bf16 activations (2 bytes), once each:
+    prefill_in reads x/B/C, dt and the conv cache and writes xh, xdt, B, C,
+    dA (f32) and the new cache; prefill_out reads y, xh and z and writes
+    out_proj's input. The (C,)/(H,)/(d_inner,) parameters are left out
+    (under 0.1%)."""
+    T = B * S
+    return {"ssm_prefill_in": 2 * (T * C + T * H + 2 * B * (K - 1) * C + 2 * T * d_inner
+                                   + 2 * T * N) + 4 * T * H,
+            "ssm_prefill_out": 2 * 4 * T * d_inner}
+
+
+def time_ssm_prefill(dev, gen, card) -> list:
+    """Device times (``time_ms``) of ssm_prefill_in and ssm_prefill_out and
+    of their plain composition at PREFILL_SHAPES (bf16), beside the bytes
+    bound (``prefill_bytes`` over the memory rate). The inputs (hundreds of
+    MB) exceed the L2 alone, so one set; the plain versions launch ~20
+    kernels a call and are timed over 5 calls. No single PyTorch call
+    computes either."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+    from repro_torch.kernels.ssm_prefill import ref
+    from repro_torch.models.ssm import _dims
+
+    bw, _ = card_rate(_BANDWIDTH, card)
+    timings = []
+    for arch, B, S in PREFILL_SHAPES:
+        cfg = get_config(arch)
+        d_inner, H, N = _dims(cfg)
+        nbytes = prefill_bytes(B, S, d_inner, N, H, d_inner + 2 * N, cfg.ssm_conv)
+        a, o, P = prefill_case(dev, gen, arch, B, S)
+        xh = pk.prefill_in(**a, head_dim=P)[0]
+        calls = {"ssm_prefill_in": (lambda: pk.prefill_in(**a, head_dim=P),
+                                    lambda: ref.prefill_in(**a, head_dim=P)),
+                 "ssm_prefill_out": (lambda: pk.prefill_out(o["y"], xh, o["z"], o["D"],
+                                                            o["scale"], o["eps"]),
+                                     lambda: ref.prefill_out(o["y"], xh, o["z"], o["D"],
+                                                             o["scale"], o["eps"]))}
+        for name, (kernel, plain) in calls.items():
+            kernel_ms = time_ms(kernel)
+            bound_ms = nbytes[name] / bw * 1e3
+            timings.append({
+                "name": name, "model": arch,
+                "shape": f"B={B} S={S} d_inner={d_inner} N={N} H={H} bf16",
+                "kernel_ms": kernel_ms, "plain_ms": time_ms(plain, reps=5),
+                "library_ms": None, "library": "none (no single PyTorch call computes it)",
+                "inputs": "one set", "bound_ms": bound_ms, "bound_by": "bytes",
+                "bytes": nbytes[name], "bandwidth_Bps": bw,
+                "bound_share_pct": 100 * bound_ms / kernel_ms})
+        del a, o, xh
+    return timings
+
+
 def serving_consistency(dev, arch: str, batch: int, prompt: int, new_tokens: int,
                         prefill_kernel, logits_shape: tuple[int, int]) -> dict:
     """``arch`` at full width in f32, cut to CONSIST_LAYERS layers: the
@@ -1116,7 +1256,8 @@ def timer_check(timings: list, profiles: dict) -> dict:
     count. The two should agree within ~15%."""
     shapes = {"flash_attention": f"B={SERVE_B} S={SERVE_S}",
               "decode_attention": f"B={SERVE_B} C={SERVE_S + SERVE_NEW}",
-              "ssd_scan": f"B={SSM_B} S={SSM_S} "}
+              "ssd_scan": f"B={SSM_B} S={SSM_S} ", "ssm_prefill_in": f"B={SSM_B} S={SSM_S} ",
+              "ssm_prefill_out": f"B={SSM_B} S={SSM_S} "}
     out = {}
     for name, profile in profiles.items():
         t = next(t for t in timings if t["name"] == name and t["shape"].startswith(shapes[name]))
@@ -2936,6 +3077,14 @@ def main() -> None:
     emit("ssd_kernels", card=card, nvidia_smi=smi, timings=ssd_timings,
          compiled=ssd_build_report(libs))
 
+    # -- 8b. ssm_prefill_kernel_check / ssm_prefill_kernels --------------------
+    prefill_checks, prefill_err = check_ssm_prefill(dev, gen)
+    max_err.update(prefill_err)
+    emit("ssm_prefill_kernel_check", checks=prefill_checks)
+    prefill_timings = time_ssm_prefill(dev, gen, card)
+    timings += prefill_timings
+    emit("ssm_prefill_kernels", card=card, nvidia_smi=smi, timings=prefill_timings)
+
     # -- 9. federation: the port's first main path, end to end -------------------
     from repro_torch.api import connect
     from repro_torch.core import AsyncFederatedNode, FederatedCallback, run_threaded
@@ -3097,14 +3246,22 @@ def main() -> None:
     emit("serving_ssm_consistency", **serving_consistency(
         dev, SSM_ARCH, SSM_CONSIST_B, SSM_CONSIST_S, SSM_CONSIST_NEW, ssd_kernel,
         (SSM_CONSIST_B, SSM_CONSIST_S)))
-    record, ssm_launches = serving(dev, SSM_ARCH, SSM_B, SSM_S, SSM_NEW, {"ssd_scan": ssd_kernel})
-    if ssm_launches["ssd_scan"] != record["n_layers"] * record["batches"]:
-        raise AssertionError(f"ssd_scan launched {ssm_launches['ssd_scan']} times for "
-                             f"{record['batches']} prefills of {record['n_layers']} layers")
+    from repro_torch.kernels.ssm_prefill import kernel as prefill_kernel
+
+    record, ssm_launches = serving(dev, SSM_ARCH, SSM_B, SSM_S, SSM_NEW,
+                                   {"ssd_scan": ssd_kernel, "ssm_prefill_in": prefill_kernel,
+                                    "ssm_prefill_out": prefill_kernel})
+    for name, n in ssm_launches.items():  # one of each a layer a prefill
+        if n != record["n_layers"] * record["batches"]:
+            raise AssertionError(f"{name} launched {n} times for {record['batches']} prefills "
+                                 f"of {record['n_layers']} layers")
     emit("serving_ssm", **record)
     ssm_record = record
     launches["ssd_scan"] = ssm_launches["ssd_scan"] + ex_launches["ssd_scan"]
-    profiles["ssd_scan"] = record["profile"]["prefill"]
+    for name in ("ssm_prefill_in", "ssm_prefill_out"):
+        launches[name] = ssm_launches[name]
+    for name in ("ssd_scan", "ssm_prefill_in", "ssm_prefill_out"):
+        profiles[name] = record["profile"]["prefill"]
 
     # the dry run is CPU work on fake tensors, one core: it runs beside the zoo
     # (the longest phase after the main paths, whose host times it would perturb)
@@ -3154,7 +3311,12 @@ def main() -> None:
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:61"),
                "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan/kernel.py:64")}
+                            "src/repro/kernels/ssd_scan/kernel.py:64"),
+               # no TPU kernel: the reference's prefill leaves this work to XLA
+               "ssm_prefill_in": ("src/repro_torch/csrc/ssm_prefill.cu",
+                                  "src/repro/models/ssm.py:234"),
+               "ssm_prefill_out": ("src/repro_torch/csrc/ssm_prefill.cu",
+                                   "src/repro/models/ssm.py:247")}
     # each attention kernel also at the zoo's served shapes (time_attention)
     at_shapes = {name: [{"model": t["model"], "shape": t["shape"], "ms": t["kernel_ms"],
                          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

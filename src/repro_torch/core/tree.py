@@ -75,20 +75,22 @@ def tree_leaves(tree: PyTree) -> list:
 
 
 def tree_unflatten(treedef: Any, leaves: Sequence) -> PyTree:
-    it = iter(leaves)
+    return _unflatten(treedef, iter(leaves))
 
-    def build(td):
-        if td == _LEAF:
-            return next(it)
-        kind = td[0]
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(td[1], td[2])}
-        if kind == "none":
-            return None
-        children = [build(c) for c in td[1]]
-        return children if kind == "list" else tuple(children)
 
-    return build(treedef)
+def _unflatten(td: Any, it) -> PyTree:
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle holding ``leaves`` (a served batch's whole
+    # cache) until the garbage collector runs
+    if td == _LEAF:
+        return next(it)
+    kind = td[0]
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(td[1], td[2])}
+    if kind == "none":
+        return None
+    children = [_unflatten(c, it) for c in td[1]]
+    return children if kind == "list" else tuple(children)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:

@@ -215,11 +215,25 @@ def rmsnorm_init(gen, d: int, dtype, lead: tuple = ()) -> dict:
     return {"scale": _full(gen, (*lead, d), dtype, 1.0)}
 
 
-def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x²) + eps) * scale in f32, rounded to x's dtype: the one
+    body of every RMSNorm (the Mamba2 prefill kernel's oracle included)."""
     x32 = unshard(x, -1).float()  # on a mesh, the normalized dim whole
     var = x32.square().mean(dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * p["scale"].float()
+    out = x32 * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
+
+
+def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return rms_norm(x, p["scale"], eps)
+
+
+def conv_silu(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor, S: int) -> torch.Tensor:
+    """silu(sum_i window[:, i:i+S] * w[i] + b), summed in the reference's order:
+    the depthwise causal conv of Mamba2 and RG-LRU (the Mamba2 prefill
+    kernel's oracle included)."""
+    out = sum(window[:, i : i + S] * w[i] for i in range(w.shape[0]))
+    return F.silu(out + b)
 
 
 def embedding_init(gen, vocab: int, d: int, dtype) -> dict:

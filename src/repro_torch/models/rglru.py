@@ -20,8 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, _full, _normal, _uniform, dense_apply, dense_init
-from .ssm import _conv_silu, causal_conv1d
+from .common import ModelConfig, _full, _normal, _uniform, conv_silu, dense_apply, dense_init
+from .ssm import causal_conv1d
 
 
 def init_rglru(gen, cfg: ModelConfig, lead: tuple = ()) -> dict:
@@ -123,7 +123,7 @@ def rglru_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
     gate = F.gelu(dense_apply(p["w_gate"], x), approximate="tanh")
     u = dense_apply(p["w_rec"], x)
     window = torch.cat([cache["conv"].to(u.dtype), u], dim=1)        # (B,K-1+S,dr)
-    conv_out = _conv_silu(window, p["conv_w"], p["conv_b"], S)
+    conv_out = conv_silu(window, p["conv_w"], p["conv_b"], S)
     a, b = _gates(p, cfg, conv_out)
     h = rglru_scan(a, b, h0=cache["h"])
     out = dense_apply(p["w_out"], h.to(x.dtype) * gate)

@@ -1,22 +1,34 @@
 """Mamba2 — the state-space duality (SSD) block [arXiv:2405.21060]; the port
 of ``repro.models.ssm``.
 
-Serving's bulk prefill ``mamba2_prefill`` runs the SSD chunked dual form
-through the ``ssd_scan`` op: on a CUDA tensor the hand-written kernel, on a
-CPU tensor the plain ``ssd_chunked`` (the reference calls ``ssd_chunked``
-directly; its TPU kernel computes the same function); on a mesh it runs
-through ``local_map`` on each rank's heads. ``mamba2_full``, the
-training forward, calls the plain ``ssd_chunked`` on any device, as the
-reference does, so autograd differentiates it (the kernel is forward-only).
-The SSD core (``segsum``, ``ssd_chunked``,
-``ssd_sequential``) lives in ``repro_torch.kernels.ssd_scan.ref`` and is
-re-exported here. Decode carries (conv_state, ssm_state): O(1) per token.
+Which path runs where:
+- Serving's bulk prefill ``mamba2_prefill`` on a CUDA tensor: two hand-written
+  kernels around the ``ssd_scan`` kernel (``repro_torch.kernels.ssm_prefill``:
+  ``prefill_in`` reads the x/B/C projections and the conv cache in place and
+  writes the scan's inputs and the new conv cache; ``prefill_out`` fuses the
+  ``D`` skip, the SiLU gate and the RMSNorm), then out_proj.
+- The same prefill on a CPU tensor: the plain composition of those ops
+  (``kernels/ssm_prefill/ref.py``) and the plain ``ssd_chunked`` (the
+  reference calls ``ssd_chunked`` directly; its TPU kernel computes the same
+  function).
+- On a mesh (DTensor activations): the plain composition on DTensors, the
+  scan through ``local_map`` on each rank's heads.
+- ``mamba2_full``, the training forward, on any device: the plain
+  composition and the plain ``ssd_chunked``, as the reference does, so
+  autograd differentiates it (the kernels are forward-only).
+- ``mamba2_decode``: plain tensor code; O(1) per token, carrying (conv_state,
+  ssm_state).
+The SSD core (``segsum``, ``ssd_chunked``, ``ssd_sequential``) lives in
+``repro_torch.kernels.ssd_scan.ref`` and the mixer's elementwise steps in
+``repro_torch.kernels.ssm_prefill.ref``; both are re-exported or used here.
 
-The reference's rounding points are kept: ``xdt = xh * dt`` in the model
-dtype, the f32 decode recurrence, ``y`` cast to the model dtype before the
-``D`` skip. Unlike the reference's pure functions, decode and prefill update
-the cache in place (and return it): ``DecoderLM`` hands each layer views
-into its stacked cache.
+The reference's rounding points are kept, on every path: each conv product
+and partial sum, ``+ b`` and the SiLU in the model dtype, ``xdt = xh * dt``
+in the model dtype, f32 ``softplus`` and ``dA``, the f32 decode recurrence,
+``y`` cast to the model dtype before the ``D`` skip, the gate in the model
+dtype and the norm in f32. Unlike the reference's pure functions, decode and
+prefill update the cache in place (and return it): ``DecoderLM`` hands each
+layer views into its stacked cache.
 """
 from __future__ import annotations
 
@@ -25,9 +37,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import segsum, ssd_chunked, ssd_sequential
+from repro_torch.kernels.ssm_prefill import ops as prefill_ops
+from repro_torch.kernels.ssm_prefill import ref as prefill_ref
 
-from .common import ModelConfig, _full, _normal, dense_apply, dense_init, rmsnorm_apply, rmsnorm_init
-from .sharded import on_local_shards
+from .common import (ModelConfig, _full, _normal, conv_silu, dense_apply, dense_init, rmsnorm_apply,
+                     rmsnorm_init)
+from .sharded import is_dtensor, on_local_shards
 
 __all__ = ["segsum", "ssd_chunked", "ssd_sequential", "init_mamba2", "causal_conv1d",
            "mamba2_full", "init_ssm_cache", "mamba2_decode", "mamba2_prefill"]
@@ -64,45 +79,36 @@ def init_mamba2(gen, cfg: ModelConfig, lead: tuple = ()) -> dict:
     }
 
 
+def _projections(p: dict, x: torch.Tensor):
+    """(z, x, B, C, dt_raw): the mixer's five input projections."""
+    return tuple(dense_apply(p[k], x) for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
 def _project_in(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    z = dense_apply(p["w_z"], x)
-    xBC = torch.cat([dense_apply(p["w_x"], x), dense_apply(p["w_B"], x),
-                     dense_apply(p["w_C"], x)], dim=-1)
-    dt_raw = dense_apply(p["w_dt"], x)
-    return z, xBC, dt_raw
+    z, xs, Bp, Cp, dt_raw = _projections(p, x)
+    return z, torch.cat([xs, Bp, Cp], dim=-1), dt_raw
 
 
 def causal_conv1d(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along time. xBC: (B,S,C); w: (K,C)."""
     K, S = w.shape[0], xBC.shape[1]
     pad = F.pad(xBC, (0, 0, K - 1, 0))
-    return _conv_silu(pad, w, b, S)
-
-
-def _conv_silu(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor, S: int) -> torch.Tensor:
-    """silu(sum_i window[:, i:i+S] * w[i] + b), summed in the reference's order."""
-    out = sum(window[:, i : i + S] * w[i] for i in range(w.shape[0]))
-    return F.silu(out + b)
+    return conv_silu(pad, w, b, S)
 
 
 def _ssd_inputs(p: dict, cfg: ModelConfig, conv_out: torch.Tensor, dt_raw: torch.Tensor):
     """conv output and raw dt → (xh, xdt, dA, Bm, Cm); Bm/Cm stay (B,S,N)
     views shared by every head."""
-    B, S, _ = conv_out.shape
     d_inner, H, N = _dims(cfg)
     xs, Bm, Cm = conv_out.split([d_inner, N, N], dim=-1)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])                    # (B,S,H)
-    A = -torch.exp(p["A_log"])                                         # (H,)
-    xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
-    xdt = xh * dt[..., None].to(xh.dtype)
-    return xh, xdt, dt * A, Bm, Cm
+    xh, xdt, dA = prefill_ref.ssd_inputs(xs, dt_raw, p["dt_bias"], p["A_log"], cfg.ssm_head_dim)
+    return xh, xdt, dA, Bm, Cm
 
 
-def _gated_out(p: dict, cfg: ModelConfig, y, xh, z):
-    B, S = y.shape[:2]
-    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(B, S, -1)
-    y = rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
+def _gated_out(p: dict, cfg: ModelConfig, ops, y, xh, z):
+    """out_proj(ops.prefill_out(y, xh, z)): the D skip, the SiLU gate and the
+    norm, through ``ops`` (``prefill_ref`` or ``prefill_ops``)."""
+    y = ops.prefill_out(y, xh, z, p["D"], p["norm"]["scale"], cfg.norm_eps)
     return dense_apply(p["out_proj"], y)
 
 
@@ -112,7 +118,7 @@ def mamba2_full(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xh, xdt, dA, Bm, Cm = _ssd_inputs(p, cfg, xBC, dt_raw)
     y = on_local_shards(_ssd_plain, (xdt, dA, Bm, Cm), heads=(2, 2, None, None),
                         chunk=cfg.ssm_chunk)
-    return _gated_out(p, cfg, y, xh, z)
+    return _gated_out(p, cfg, prefill_ref, y, xh, z)
 
 
 def _ssd_plain(x, dA, Bm, Cm, *, chunk: int) -> torch.Tensor:
@@ -171,13 +177,15 @@ def mamba2_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
     prefill. Seeds from ``cache`` (zeros == fresh), so the result matches the
     recurrence ``mamba2_decode`` would have run token by token. The scan's
     final state is written straight into ``cache["ssm"]``; the conv cache
-    becomes the trailing (ssm_conv-1) raw xBC rows."""
-    S = x.shape[1]
-    z, xBC, dt_raw = _project_in(p, cfg, x)
-    window = torch.cat([cache["conv"].to(xBC.dtype), xBC], dim=1)     # (B,K-1+S,C)
-    conv_out = _conv_silu(window, p["conv_w"], p["conv_b"], S)
-    xh, xdt, dA, Bm, Cm = _ssd_inputs(p, cfg, conv_out, dt_raw)
+    becomes the trailing (ssm_conv-1) raw xBC rows. Off a mesh the
+    elementwise work runs through ``kernels.ssm_prefill``'s ops (the kernels
+    on the card, their plain composition on the CPU); on a mesh the plain
+    composition runs on DTensors."""
+    z, xs, Bp, Cp, dt_raw = _projections(p, x)
+    ops = prefill_ref if is_dtensor(xs) else prefill_ops
+    xh, xdt, dA, Bm, Cm = ops.prefill_in(xs, Bp, Cp, dt_raw, cache["conv"], p["conv_w"],
+                                         p["conv_b"], p["dt_bias"], p["A_log"],
+                                         head_dim=cfg.ssm_head_dim)
     y, _ = on_local_shards(_ssd_in_place, (xdt, dA, Bm, Cm, cache["ssm"]),
                            heads=(2, 2, None, None, 1), out_like=(0, 4), chunk=cfg.ssm_chunk)
-    cache["conv"].copy_(window[:, S:])
-    return _gated_out(p, cfg, y, xh, z), cache
+    return _gated_out(p, cfg, ops, y, xh, z), cache

@@ -510,22 +510,233 @@ def test_ssd_f32_still_runs_the_fma_kernel(cuda):
     torch.testing.assert_close(got_y, want_y, rtol=1e-4, atol=1e-4)
 
 
+# (d_inner, N, head_dim): mamba2-130m's mixer and granite-4.0-h-micro's
+MIXER_WIDTHS = {"mamba2": (1536, 128, 64), "granite": (4096, 128, 64)}
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 units in the last place between two bf16 tensors (their
+    bit patterns as ordered integers; +0 and -0 are one value)."""
+    def ordinal(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def _assert_same_bits(got: torch.Tensor, want: torch.Tensor, name: str) -> None:
+    """Equal bit for bit; the distance (bf16 ulps, or the largest absolute
+    difference) in the message where not."""
+    want = want.contiguous()
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    if not torch.equal(got, want):
+        far = (f"{int(_bf16_ulps(got, want).max())} bf16 ulps" if got.dtype == torch.bfloat16
+               else f"{float((got - want).abs().max())}")
+        raise AssertionError(f"{name}: not the plain composition's bits ({far} apart)")
+
+
+def _mixer_inputs(dev, g, B, S, widths, dtype, seeded_cache, *, offset=0):
+    """The projections, dt and conv cache of one Mamba2 mixer, the parameters
+    drawn around the model's init (conv_w N(0, 0.1^2); A_log = log(1..H)).
+    ``offset`` > 0 shifts the x projection off the 16-byte grid."""
+    d_inner, N, P = widths
+    H, C = d_inner // P, d_inner + 2 * N
+
+    def rand(*shape, s=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * s).to(dtype)
+
+    xs = rand(B * S * d_inner + offset).narrow(0, offset, B * S * d_inner).view(B, S, d_inner)
+    conv = rand(B, 3, C) if seeded_cache else torch.zeros(B, 3, C, dtype=dtype, device=dev)
+    return dict(xs=xs, Bp=rand(B, S, N), Cp=rand(B, S, N), dt_raw=rand(B, S, H),
+                conv_cache=conv, conv_w=rand(4, C, s=0.1), conv_b=rand(C, s=0.1),
+                dt_bias=torch.randn(H, device=dev, generator=g) * 0.5,
+                A_log=torch.log(torch.arange(1, H + 1, dtype=torch.float32, device=dev)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", ["mamba2", "granite"])
+@pytest.mark.parametrize("B,S", [(1, 1), (8, 2), (1, 100), (8, 1000)])
+@pytest.mark.parametrize("seeded_cache", [False, True])
+def test_ssm_prefill_in_kernel_matches_plain(cuda, dtype, arch, B, S, seeded_cache):
+    """At mamba2's and granite's widths: S = 1 and S = 2 (< K-1, old cache
+    rows kept), S not a multiple of the 64-row time tile, B = 1 and 8, a zero
+    and a seeded conv cache. xh, xdt, dA, B, C and the new conv cache equal
+    the plain composition's on the card bit for bit, one launch."""
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+    from repro_torch.kernels.ssm_prefill import ref
+
+    g = torch.Generator(device=cuda).manual_seed(B * S + seeded_cache)
+    a = _mixer_inputs(cuda, g, B, S, MIXER_WIDTHS[arch], dtype, seeded_cache)
+    plain_cache = a["conv_cache"].clone()
+    want = ref.prefill_in(**{**a, "conv_cache": plain_cache}, head_dim=MIXER_WIDTHS[arch][2])
+    before = pk.LAUNCHES["ssm_prefill_in"]
+    got = pk.prefill_in(**a, head_dim=MIXER_WIDTHS[arch][2])
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["ssm_prefill_in"] == before + 1
+    for name, g_, w_ in zip(("xh", "xdt", "dA", "Bm", "Cm"), got, want):
+        assert g_.is_contiguous(), name
+        _assert_same_bits(g_, w_, name)
+    assert torch.equal(a["conv_cache"], plain_cache)
+    assert got[3].data_ptr() % 16 == 0 and got[4].data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", ["mamba2", "granite"])
+@pytest.mark.parametrize("B,S", [(1, 1), (3, 1), (8, 1), (8, 2), (1, 100), (8, 1000)])
+def test_ssm_prefill_out_kernel_matches_plain(cuda, dtype, arch, B, S):
+    """y + xh·D, the SiLU gate and the f32 RMSNorm over d_inner, at both
+    widths, equal to the plain composition's bits: the row's squares are
+    summed as PyTorch's mean sums them, whose lanes a row (32 to 512) follow
+    the row count (1, 3, 8, 16, 100, 8000 here)."""
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+    from repro_torch.kernels.ssm_prefill import ref
+
+    d_inner, _, P = MIXER_WIDTHS[arch]
+    H = d_inner // P
+    g = torch.Generator(device=cuda).manual_seed(B + S)
+    y, xh = ((torch.randn(B, S, H, P, device=cuda, generator=g) * 0.5).to(dtype) for _ in range(2))
+    z = torch.randn(B, S, d_inner, device=cuda, generator=g).to(dtype)
+    D = 1 + 0.1 * torch.randn(H, device=cuda, generator=g)
+    scale = (1 + 0.1 * torch.randn(d_inner, device=cuda, generator=g)).to(dtype)
+    before = pk.LAUNCHES["ssm_prefill_out"]
+    got = pk.prefill_out(y, xh, z, D, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["ssm_prefill_out"] == before + 1
+    _assert_same_bits(got, ref.prefill_out(y, xh, z, D, scale, 1e-5), "out")
+
+
+@pytest.mark.parametrize("arch,B,S", [("mamba2", 8, 8192), ("granite", 4, 32768)])
+def test_ssm_prefill_kernels_match_plain_at_the_served_shapes(cuda, arch, B, S):
+    """Both kernels in bf16 at the long-prompt serving shapes (mamba2-130m's
+    8 x 8,192 prompts, granite-4.0-h-micro's 4 x 32,768) with a seeded conv
+    cache: every output, the new conv cache included, the plain
+    composition's bits."""
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+    from repro_torch.kernels.ssm_prefill import ref
+
+    d_inner, _, P = MIXER_WIDTHS[arch]
+    g = torch.Generator(device=cuda).manual_seed(S)
+    a = _mixer_inputs(cuda, g, B, S, MIXER_WIDTHS[arch], torch.bfloat16, True)
+    plain_cache = a["conv_cache"].clone()
+    want = ref.prefill_in(**{**a, "conv_cache": plain_cache}, head_dim=P)
+    got = pk.prefill_in(**a, head_dim=P)
+    for name, g_, w_ in zip(("xh", "xdt", "dA", "Bm", "Cm"), got, want):
+        _assert_same_bits(g_, w_, name)
+    assert torch.equal(a["conv_cache"], plain_cache)
+    y = torch.randn(got[0].shape, device=cuda, generator=g).to(torch.bfloat16)
+    z = torch.randn(B, S, d_inner, device=cuda, generator=g).to(torch.bfloat16)
+    D = 1 + 0.1 * torch.randn(d_inner // P, device=cuda, generator=g)
+    scale = (1 + 0.1 * torch.randn(d_inner, device=cuda, generator=g)).to(torch.bfloat16)
+    _assert_same_bits(pk.prefill_out(y, got[0], z, D, scale, 1e-5),
+                      ref.prefill_out(y, got[0], z, D, scale, 1e-5), "out")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_prefill_kernels_raise_on_misaligned_views(cuda, dtype):
+    """The kernels move 16-byte vectors: an x projection off that grid, or a
+    z view into a wider row, raises, and nothing is launched or routed
+    elsewhere."""
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+
+    widths = MIXER_WIDTHS["mamba2"]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = _mixer_inputs(cuda, g, 2, 130, widths, dtype, True, offset=1)
+    before = dict(pk.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pk.prefill_in(**a, head_dim=widths[2])
+    y = torch.zeros(2, 130, widths[0] // widths[2], widths[2], device=cuda, dtype=dtype)
+    z = torch.zeros(2, 130, widths[0] + 1, device=cuda, dtype=dtype)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pk.prefill_out(y, y, z, torch.ones(y.shape[2], device=cuda),
+                       torch.ones(widths[0], device=cuda, dtype=dtype), 1e-6)
+    assert pk.LAUNCHES == before
+
+
+def test_ssm_prefill_kernels_raise_on_what_they_do_not_take(cuda):
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = _mixer_inputs(cuda, g, 1, 8, MIXER_WIDTHS["mamba2"], torch.bfloat16, False)
+    before = dict(pk.LAUNCHES)
+    with pytest.raises(ValueError, match="conv_w"):
+        pk.prefill_in(**{**a, "conv_w": a["conv_w"][:3]}, head_dim=64)
+    with pytest.raises(ValueError, match="float16"):
+        pk.prefill_in(**{k: (v.half() if v.dtype == torch.bfloat16 else v) for k, v in a.items()},
+                      head_dim=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.prefill_in(**{k: v.cpu() for k, v in a.items()}, head_dim=64)
+    y = torch.zeros(1, 8, 24, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale"):
+        pk.prefill_out(y, y, y.view(1, 8, -1), torch.ones(24, device=cuda),
+                       torch.ones(1536, device=cuda), 1e-6)
+    narrow = y[:, :, :2]  # d_inner 128: PyTorch's mean sums such rows another way
+    with pytest.raises(ValueError, match="does not take"):
+        pk.prefill_out(narrow, narrow, narrow.reshape(1, 8, -1), torch.ones(2, device=cuda),
+                       torch.ones(128, device=cuda, dtype=torch.bfloat16), 1e-6)
+    assert pk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-4.0-h-micro"])
+def test_mamba2_prefill_fused_matches_the_plain_path_on_the_card(cuda, monkeypatch, dtype,
+                                                                 arch):
+    """A model of two Mamba2 layers at the published widths, whole bulk
+    prefill on the card: the fused kernels (once a layer each) against the
+    plain composition on the same card (``ref`` patched in, as a mesh runs
+    it): the logits and every cache equal bit for bit, in f32 and bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssm_prefill import kernel as pk
+    from repro_torch.kernels.ssm_prefill import ref
+    from repro_torch.models import build_model, ssm
+
+    cfg = get_config(arch).replace(dtype=dtype, n_layers=2, layer_pattern=("ssm_mlp",)
+                                   if arch.startswith("granite") else ("ssm",))
+    model = build_model(cfg)
+    params = model.init(2, device=cuda)
+    B, S = 4, 700
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(2),
+                           dtype=torch.int32).to(cuda)
+
+    def prefill():
+        cache = model.init_cache(B, S, device=cuda)
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, tokens, cache)
+        torch.cuda.synchronize()
+        return logits.float(), cache
+
+    pk.reset_launches()
+    sk.reset_launches()
+    got, got_cache = prefill()
+    assert pk.LAUNCHES == {"ssm_prefill_in": 2, "ssm_prefill_out": 2}
+    assert sk.LAUNCHES["ssd_scan"] == 2
+    monkeypatch.setattr(ssm, "prefill_ops", ref)
+    want, want_cache = prefill()
+    assert pk.LAUNCHES == {"ssm_prefill_in": 2, "ssm_prefill_out": 2}
+    assert torch.equal(got, want)
+    for (path, g_), (_, w_) in zip(tree_flatten_with_path(got_cache)[0],
+                                   tree_flatten_with_path(want_cache)[0]):
+        assert torch.equal(g_, w_), path
+
+
 @pytest.mark.parametrize("arch,S", [("pythia-14m", 64), ("pythia-14m", 1280),
                                     ("mamba2-130m", 96)])
 def test_training_forward_on_the_card_reaches_no_forward_only_kernel(cuda, arch, S):
     """A training loss (use_flash=False, remat on) on CUDA tensors launches
     none of the forward-only kernels and differentiates: loss and gradients
     equal the CPU's at the reference's 1e-4 (S = 1280 runs chunked_sdpa).
-    Serving's bulk prefill of the same model launches one a layer."""
+    Serving's bulk prefill of the same model launches each once a layer."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssm_prefill import kernel as pk
     from repro_torch.models import build_model
     from repro_torch.training import value_and_grad
 
     def launches():
-        return fk.LAUNCHES["flash_attention"] + sk.LAUNCHES["ssd_scan"]
+        return (fk.LAUNCHES["flash_attention"] + sk.LAUNCHES["ssd_scan"]
+                + pk.LAUNCHES["ssm_prefill_in"] + pk.LAUNCHES["ssm_prefill_out"])
 
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
@@ -546,7 +757,7 @@ def test_training_forward_on_the_card_reaches_no_forward_only_kernel(cuda, arch,
         model.prefill(on_card(params), on_card(batch)["tokens"],
                       model.init_cache(2, S, device=cuda))
     torch.cuda.synchronize()
-    assert launches() == before + cfg.n_layers
+    assert launches() == before + cfg.n_layers * (3 if cfg.ssm_state else 1)
 
 
 @pytest.mark.parametrize("arch,attn_layers", [("recurrentgemma-9b", 2), ("minicpm3-4b", 0),

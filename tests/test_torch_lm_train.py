@@ -66,6 +66,8 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssm_prefill import kernel as prefill_kernel
+from repro_torch.kernels.ssm_prefill import ops as prefill_ops
 from repro_torch.launch import steps
 from repro_torch.models import attention, build_model, common, load_jax_params
 from repro_torch.training import TrainState, make_train_step, value_and_grad
@@ -213,7 +215,9 @@ def test_training_forward_reaches_no_forward_only_kernel(monkeypatch):
 
     for mod, name in [(flash_ops, "flash_attention"), (dec_ops, "decode_attention"),
                       (ssd_ops, "ssd"), (flash_kernel, "flash_attention"),
-                      (dec_kernel, "decode_attention"), (ssd_kernel, "ssd")]:
+                      (dec_kernel, "decode_attention"), (ssd_kernel, "ssd"),
+                      (prefill_ops, "prefill_in"), (prefill_ops, "prefill_out"),
+                      (prefill_kernel, "prefill_in"), (prefill_kernel, "prefill_out")]:
         monkeypatch.setattr(mod, name, boom)
     for arch, S in [("pythia-14m", 16), ("pythia-14m", 1280), ("mamba2-130m", 40)]:
         cfg = get_config(arch).reduced()

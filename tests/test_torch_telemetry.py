@@ -395,6 +395,8 @@ def test_record_function_only_at_the_kernel_launch_sites():
         ("kernels/fed_agg/kernel.py", "kernel.fed_opt"),
         ("kernels/flash_attention/kernel.py", "kernel.flash_attention"),
         ("kernels/ssd_scan/kernel.py", "kernel.ssd_scan"),
+        ("kernels/ssm_prefill/kernel.py", "kernel.ssm_prefill_in"),
+        ("kernels/ssm_prefill/kernel.py", "kernel.ssm_prefill_out"),
     ]
     for _, name, gate in calls:
         # entered only while a profiler runs, and named apart from the symbols
